@@ -1,0 +1,48 @@
+"""The renderer's one trace entry point (counterpart of
+``cuda_pathtracer_tpu/ops/dispatch.py::trace``): the sphere/plane prepass,
+then the merged-BVH traversal (``ops/traverse_packet2.py``), which launches
+the CUDA kernel on the card and runs its plain version on the CPU.
+"""
+from __future__ import annotations
+
+import torch
+
+from .traverse import Hit, PRIM_TRIANGLE, _primitives_prepass
+from .traverse_packet2 import MergedTable, traverse_merged
+from cuda_pathtracer_tpu.constants import T_MAX
+
+
+def trace(scene, dyn, ro, rd, *, t_max=None, active=None,
+          any_hit: bool = False, stop_on_hit=None,
+          want_uv: bool = False) -> Hit:
+    """Closest-hit (or any-hit) trace of ro/rd f32[B, 3].
+
+    t_max: f32[B] ray length cap; active: bool[B] lanes that carry a ray;
+    stop_on_hit: bool[B] lanes that end at their first hit (default: all
+    when ``any_hit``). ``want_uv`` returns the winning triangle's
+    barycentrics in Hit.u / Hit.v (closest-hit only)."""
+    B = ro.shape[0]
+    dev = ro.device
+    if t_max is None:
+        t_max = torch.full((B,), T_MAX, dtype=torch.float32, device=dev)
+    if active is None:
+        active = torch.ones(B, dtype=torch.bool, device=dev)
+    if stop_on_hit is None:
+        stop_on_hit = torch.full((B,), bool(any_hit), device=dev)
+    t0, ptype0, pid0, found0 = _primitives_prepass(scene, ro, rd, t_max)
+    # a stop-on-hit lane whose prepass already found an occluder is done
+    live = active & ~(stop_on_hit & found0)
+    want_uv = want_uv and not any_hit
+    t, gid, found, u, v = traverse_merged(
+        MergedTable(dyn.packet_merged, dyn.depth), ro.contiguous(),
+        rd.contiguous(), t0.contiguous(), live, stop_on_hit.contiguous(),
+        want_uv=want_uv)
+    ptype = torch.where(found, torch.full_like(ptype0, PRIM_TRIANGLE), ptype0)
+    pid = torch.where(found, gid, pid0)
+    intersected = active & (found | found0)
+    if want_uv:
+        zero = torch.zeros((), dtype=torch.float32, device=dev)
+        u = torch.where(found, u, zero)
+        v = torch.where(found, v, zero)
+    return Hit(t=t, prim_type=ptype, prim_id=pid, intersected=intersected,
+               u=u, v=v)

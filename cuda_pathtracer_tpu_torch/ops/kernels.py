@@ -1,0 +1,147 @@
+"""Build, load and count the hand-written CUDA kernels under ``csrc/``.
+
+All ``csrc/*.cu`` files compile with one ``nvcc`` call into one shared
+library with a plain C interface, loaded with ``ctypes`` (no PyTorch headers,
+so a build takes seconds). The build runs at first use, goes to
+``cuda_pathtracer_tpu_torch/_build/`` (git-ignored) and is keyed by a hash of
+the sources and flags, so an edited source rebuilds and an unchanged one is
+reused. A failed build raises; nothing falls back to the plain versions.
+
+Flags: ``-fmad=false`` forbids multiply-add contraction so the kernels round
+like the plain PyTorch versions (the traversal's ``t`` is compared bit for
+bit), and there is no ``--use_fast_math`` (IEEE division and square root,
+no flush of denormals: the traversal table carries int32 words bitcast into
+f32, most of them denormal).
+
+Each wrapper adds one to ``LAUNCHES[name]`` where it launches its kernel, and
+each plain version adds one to ``PLAIN_ON_CUDA[name]`` when it runs on a CUDA
+tensor, so a run can show which implementation the main path went through.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+
+import torch
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, 'csrc')
+BUILD_DIR = os.path.join(_PKG, '_build')
+NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-O3', '-std=c++17',
+              '-shared', '-Xcompiler', '-fPIC', '-fmad=false', '-Xptxas', '-v']
+
+NAMES = ('traverse', 'guiding_scatter', 'blur')
+LAUNCHES = dict.fromkeys(NAMES, 0)
+PLAIN_ON_CUDA = dict.fromkeys(NAMES, 0)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# C entry points: name -> (restype, argtypes). The launchers return the
+# cudaError_t of cudaGetLastError() after their launch.
+_SIGNATURES = {
+    'cpt_traverse': (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P,
+                          _P, _P]),
+    'cpt_guiding_scatter': (_I, [_P, _P, _P, _I, _I, _P, _P, _P]),
+    'cpt_blur': (_I, [_P, _P, _F, _P, _I, _I, _P, _P, _P]),
+    'cpt_traverse_max_stack': (_I, []),
+    'cpt_error_string': (ctypes.c_char_p, [_I]),
+}
+
+_lib = None
+
+
+def reset_counts():
+    for n in NAMES:
+        LAUNCHES[n] = 0
+        PLAIN_ON_CUDA[n] = 0
+
+
+def note_plain(name: str, tensor):
+    if tensor.is_cuda:
+        PLAIN_ON_CUDA[name] += 1
+
+
+def _nvcc() -> str:
+    found = shutil.which('nvcc')
+    if found:
+        return found
+    cand = os.path.join(os.environ.get('CUDA_HOME', '/usr/local/cuda'),
+                        'bin', 'nvcc')
+    if os.path.exists(cand):
+        return cand
+    raise RuntimeError('nvcc not found: the CUDA kernels cannot be built')
+
+
+def _sources():
+    return sorted(os.path.join(CSRC, f) for f in os.listdir(CSRC)
+                  if f.endswith(('.cu', '.cuh')))
+
+
+def library_path() -> str:
+    h = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
+    for src in _sources():
+        with open(src, 'rb') as f:
+            h.update(os.path.basename(src).encode() + f.read())
+    return os.path.join(BUILD_DIR, f'libcpt_kernels_{h.hexdigest()[:16]}.so')
+
+
+def build() -> str:
+    """Compile the library unless an up-to-date one exists; returns its path.
+    The ptxas report (registers, spills) is kept beside it as ``.log``."""
+    so = library_path()
+    if os.path.exists(so):
+        return so
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f'{so}.{os.getpid()}.tmp'
+    cus = [s for s in _sources() if s.endswith('.cu')]
+    cmd = [_nvcc(), *NVCC_FLAGS, '-o', tmp, *cus]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    with open(so[:-3] + '.log', 'w') as f:
+        f.write(' '.join(cmd) + '\n' + res.stdout + res.stderr)
+    if res.returncode != 0:
+        raise RuntimeError(f'nvcc failed ({res.returncode}):\n{res.stderr}')
+    os.replace(tmp, so)
+    return so
+
+
+def library():
+    """The loaded kernel library (built on first use)."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(build())
+        for name, (res, args) in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.restype = res
+            fn.argtypes = args
+        _lib = lib
+    return _lib
+
+
+def check(err: int, name: str):
+    """Raise on a nonzero cudaError_t returned after a launch."""
+    if err != 0:
+        msg = library().cpt_error_string(err).decode()
+        raise RuntimeError(f'{name} kernel launch failed: {msg} ({err})')
+
+
+def stream_of(tensor) -> int:
+    return torch.cuda.current_stream(tensor.device).cuda_stream
+
+
+def require_cuda(name: str, *tensors, dtypes=None):
+    """The wrapper contract: every tensor on one CUDA device and contiguous
+    (and of the given dtypes, when given)."""
+    dev = tensors[0].device
+    for i, t in enumerate(tensors):
+        if t.device != dev or not t.is_cuda:
+            raise ValueError(f'{name}: argument {i} is on {t.device}, '
+                             f'expected {dev}')
+        if not t.is_contiguous():
+            raise ValueError(f'{name}: argument {i} is not contiguous')
+        if dtypes is not None and t.dtype != dtypes[i]:
+            raise TypeError(f'{name}: argument {i} is {t.dtype}, '
+                            f'expected {dtypes[i]}')
