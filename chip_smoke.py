@@ -2,29 +2,50 @@
 
     python3 chip_smoke.py
 
-Builds the three hand-written CUDA kernels from ``cuda_pathtracer_tpu_torch/
-csrc`` and drives the port's main path once at full size: the sibenik scene
-at 1920x1080, one clear frame, 4 converge samples (32 bounces, NEE, guiding
-training) and the blurred display image. It checks that every kernel ran on
-that path and that the plain PyTorch versions did not, then holds each kernel
-against its plain version on the main path's own inputs (traversal: the
-primary, shadow and first-bounce waves of the first converge sample, found
-and t bit-identical; guiding scatter: that sample's updates, rtol 1e-5; blur:
-the final 1920x1080 accumulators, rtol 1e-6), renders a small room on the
-card and on the CPU and compares the two, and times each kernel against its
-plain version with CUDA events.
+Builds the four hand-written CUDA kernels from ``cuda_pathtracer_tpu_torch/
+csrc`` and drives the port's two paths once at full size:
+
+1. the converge path: the sibenik scene at 1920x1080, one clear frame, 4
+   converge samples (32 bounces, NEE, guiding training) and the blurred
+   display image, on the v2 merged-table traversal;
+2. the CLI's animated path: ``python -m cuda_pathtracer_tpu_torch --scene
+   outside --width 1920 --height 1080 --time 5 --spp 4 --blur``, run in this
+   process with ``PACKET_V1`` on (the split-table v1 traversal, shading's
+   re-intersect, the device refit of the moved cubes), then again with it
+   off (v2 on the refit-derived merged table), the two renders compared.
+
+Each path's launch counts are set to 0 just before it and read just after:
+every kernel of a path must have launched on it, and no plain PyTorch version
+may have run on the card. Then each kernel is held against its plain version
+on the main path's own inputs: v2 traversal on the primary, shadow and
+first-bounce waves of sibenik's first converge sample (found and t
+bit-identical), the v1 traversal on the same waves (against its plain
+version found and t bit-identical; against v2 found equal, and t equal but
+on exact ties between two triangles), the guiding scatter on that sample's
+updates (rtol 1e-5), the blur on the final 1920x1080 accumulators (rtol
+1e-6). The refitted outside tables are held to a forced full rebuild on the
+card (atol 2e-4, NaN slots equal), and a small room renders alike on the card
+and on the CPU. Kernel and plain times come from CUDA events; each kernel's
+bound is the larger of its bytes over 3.35 TB/s and its FP32 operations over
+67 TFLOP/s, counted from this run's inputs (for the traversals, the node and
+leaf visits of the plain walks).
 
 Prints the card's name and power limit, the build time, per-phase lines,
-then one JSON line of per-kernel results, and as its last line
+then one JSON line of per-kernel results, the card line, and as its last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, with no result line, when
-there is no CUDA device or any phase fails. Imports no JAX.
+there is no CUDA device or any phase fails. Imports nothing of JAX or of the
+JAX package.
 """
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
+import re
 import subprocess
 import sys
+import tempfile
 import time
 
 KERNELS = {
@@ -34,9 +55,27 @@ KERNELS = {
                         'cuda_pathtracer_tpu/ops/guiding_scatter.py:47'),
     'blur': ('cuda_pathtracer_tpu_torch/csrc/blur.cu',
              'cuda_pathtracer_tpu/ops/blur_pallas.py:40'),
+    'traverse_packet': ('cuda_pathtracer_tpu_torch/csrc/traverse_packet.cu',
+                        'cuda_pathtracer_tpu/ops/traverse_packet.py:180'),
 }
+# the kernels each path must launch
+SIBENIK_KERNELS = ('traverse', 'guiding_scatter', 'blur')
+OUTSIDE_KERNELS = ('traverse_packet', 'blur')
 WIDTH, HEIGHT = 1920, 1080
 CONVERGE_SAMPLES = 4
+OUTSIDE_ARGS = ['--scene', 'outside', '--width', str(WIDTH), '--height',
+                str(HEIGHT), '--time', '5', '--spp', '4', '--blur',
+                '--device', 'cuda']
+
+# the card's peaks for bound_ms (NVIDIA H100 SXM data sheet)
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+# FP32 operations per visit, as the kernels do them: an inner visit slab-tests
+# 16 slots (6 mul, 6 sub, 6 min/max, 4 for the tmin/tmax reductions, 1 max,
+# 2 compares); a leaf visit runs Moller-Trumbore on 12 triangles (56 each:
+# the cross, dot, reciprocal, u/v/t products and the 8 acceptance tests)
+SLAB_OPS = 16 * 25
+LEAF_OPS = 12 * 56
 
 
 def log(msg: str):
@@ -64,14 +103,23 @@ def cuda_ms(fn, reps: int = 1, warmup: int = 0):
     return start.elapsed_time(end) / reps, out
 
 
+def bound(n_bytes: float, n_ops: float):
+    """(bound_ms, bound_by): the least time for the work on this card."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
+
+
 class Recorder:
     """Wraps a module attribute; keeps clones of the arguments of the calls
-    numbered in ``keep`` (0-based) and otherwise passes straight through."""
+    numbered in ``keep`` (0-based), and with ``returns`` the return value of
+    every call, and otherwise passes straight through."""
 
-    def __init__(self, module, name: str, keep):
+    def __init__(self, module, name: str, keep=(), returns: bool = False):
         self.module, self.name, self.keep = module, name, set(keep)
+        self.returns = returns
         self.orig = getattr(module, name)
-        self.calls, self.saved = 0, {}
+        self.calls, self.saved, self.returned = 0, {}, []
 
     def __enter__(self):
         def wrapped(*args, **kw):
@@ -80,12 +128,46 @@ class Recorder:
                     tuple(a.clone() if hasattr(a, 'clone') else a for a in args),
                     dict(kw))
             self.calls += 1
-            return self.orig(*args, **kw)
+            out = self.orig(*args, **kw)
+            if self.returns:
+                self.returned.append(out)
+            return out
         setattr(self.module, self.name, wrapped)
         return self
 
     def __exit__(self, *exc):
         setattr(self.module, self.name, self.orig)
+
+
+def traversal_work(n_rays: int, n_out: int, stats: dict, row_bytes: int = 512):
+    """Bytes and operations a traversal needs on this wave: each ray read and
+    written once, each table row it touches read once, and the visits the
+    plain walk made."""
+    rows = sum(int(v.sum()) for k, v in stats.items() if k.endswith('rows'))
+    n_bytes = n_rays * (12 + 12 + 4 + 1 + 1) + n_rays * n_out + rows * row_bytes
+    n_ops = stats['inner'] * SLAB_OPS + stats['leaf'] * LEAF_OPS
+    return n_bytes, n_ops
+
+
+def run_cli(main, args, packet_v1: bool):
+    """The port's CLI main in this process, with its Pathtracer and scene
+    captured. Returns (rc, stderr text, pathtracer, scene)."""
+    from cuda_pathtracer_tpu_torch.models import pathtracer as pt_mod
+    from cuda_pathtracer_tpu_torch.ops import dispatch as dispatch_mod
+    from cuda_pathtracer_tpu_torch.scene import builder
+    dispatch_mod.PACKET_V1 = packet_v1
+    err = io.StringIO()
+    try:
+        with Recorder(pt_mod, 'Pathtracer', returns=True) as app, \
+                Recorder(builder, 'get_scene', returns=True) as scn, \
+                contextlib.redirect_stderr(err):
+            rc = main(args)
+    finally:
+        dispatch_mod.PACKET_V1 = False
+    for line in err.getvalue().splitlines():
+        if line.startswith(('rendered', 'energy')):
+            log('  cli: ' + line)
+    return rc, err.getvalue(), app.returned[0], scn.returned[0]
 
 
 def main() -> int:
@@ -97,6 +179,8 @@ def main() -> int:
     # the port must not need JAX: make any attempt to import it fail
     sys.modules['jax'] = None
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from cuda_pathtracer_tpu_torch.__main__ import main as cli_main
+    from cuda_pathtracer_tpu_torch.accel import native
     from cuda_pathtracer_tpu_torch.core.camera import Camera
     from cuda_pathtracer_tpu_torch.models import guiding as guiding_mod
     from cuda_pathtracer_tpu_torch.models.pathtracer import Pathtracer
@@ -104,6 +188,7 @@ def main() -> int:
     from cuda_pathtracer_tpu_torch.ops import dispatch as dispatch_mod
     from cuda_pathtracer_tpu_torch.ops import guiding_scatter as gs_mod
     from cuda_pathtracer_tpu_torch.ops import kernels
+    from cuda_pathtracer_tpu_torch.ops import traverse_packet as tp1
     from cuda_pathtracer_tpu_torch.ops import traverse_packet2 as tp2
     from cuda_pathtracer_tpu_torch.scene import builder
 
@@ -120,90 +205,173 @@ def main() -> int:
             if 'registers' in line or 'spill' in line:
                 log('  ptxas: ' + line.strip())
 
-    # ---- the main path at full size ----
+    failures = []
+    launches = {}
+
+    t = time.perf_counter()
+    ok = native.available()
+    log(f'native BVH builder: available={ok} (build '
+        f'{time.perf_counter() - t:.2f} s); the host BVH builds with '
+        f'{"it" if ok else "the numpy fallback"}')
+    if not ok:
+        for line in native.build_log().splitlines()[-8:]:
+            log('  g++: ' + line)
+
+    # ---- path 1: sibenik converge at full size (v2) ----
     t = time.perf_counter()
     scene = builder.get_scene('sibenik')
     pt = Pathtracer(scene, WIDTH, HEIGHT, device='cuda')
     torch.cuda.synchronize()
     log(f'scene: sibenik {len(scene._tri_mat)} triangles, merged BVH '
-        f'{pt.dyn.packet_merged.shape[0]} rows, depth {pt.dyn.depth}; '
-        f'host build + upload {time.perf_counter() - t:.2f} s')
+        f'{pt.dyn.packet_merged.shape[0]} rows, split BVH '
+        f'{pt.dyn.packet_inner.shape[0]} + {pt.dyn.packet_leaf.shape[0]} rows, '
+        f'depth {pt.dyn.depth}; host build + upload '
+        f'{time.perf_counter() - t:.2f} s')
     cam = Camera.create([0.0, 5.0, -16.0], [0.0, 0.0, 1.0], 1.5, 12.0, 0.0,
                         device='cuda')
 
+    sample_ms, sample_rays, per_sample = [], [], []
     kernels.reset_counts()
-    sample_ms, sample_rays = [], []
     # the clear frame traces once (bounce cap 1); the first converge
     # sample's primary, shadow and bounce-1 waves are trace calls 2, 3, 4
     with Recorder(dispatch_mod, 'traverse_merged', keep=(2, 3, 4)) as trav, \
             Recorder(guiding_mod, 'segment_sum_pairs', keep=(0,)) as scat:
         for i in range(1 + CONVERGE_SAMPLES):
             rays0 = int(pt.rays_traced)
+            before = dict(kernels.LAUNCHES)
             ms, _ = cuda_ms(lambda: pt.render(cam, should_clear=(i == 0)))
             rays = int(pt.rays_traced) - rays0
+            per_sample.append({k: kernels.LAUNCHES[k] - before[k]
+                               for k in kernels.NAMES})
             log(f'sample {i} ({"clear" if i == 0 else "converge"}): '
-                f'{ms:.1f} ms, {rays} rays, {rays / ms / 1e3:.2f} Mrays/s')
+                f'{ms:.1f} ms, {rays} rays, {rays / ms / 1e3:.2f} Mrays/s, '
+                f'launches {per_sample[-1]}')
             if i:
                 sample_ms.append(ms)
                 sample_rays.append(rays)
         blur_ms, img = cuda_ms(lambda: pt.image(blur=True))
     torch.cuda.synchronize()
-    launches = dict(kernels.LAUNCHES)
+    sib_launches = dict(kernels.LAUNCHES)
     plain_on_cuda = dict(kernels.PLAIN_ON_CUDA)
-    log(f'launches on the main path: {launches}; plain versions on CUDA: '
-        f'{plain_on_cuda}')
+    log(f'launches on the sibenik path: {sib_launches}; plain versions on '
+        f'CUDA: {plain_on_cuda}')
     energy, has_nan, has_neg = pt.energy()
     mrays = sum(sample_rays) / sum(sample_ms) / 1e3
-    log(f'slice: {CONVERGE_SAMPLES} converge samples, '
-        f'{sum(sample_ms) / len(sample_ms):.1f} ms/sample, {mrays:.2f} Mrays/s; '
-        f'image(blur=True) {blur_ms:.2f} ms; energy={energy:.4f} '
+    log(f'sibenik converge: {CONVERGE_SAMPLES} samples, '
+        f'{sum(sample_ms) / len(sample_ms):.1f} ms/sample, {mrays:.2f} Mrays/s '
+        f'on {card}; image(blur=True) {blur_ms:.2f} ms; energy={energy:.4f} '
         f'nan={has_nan} neg={has_neg}')
-    failures = []
     if not (energy > 0 and energy == energy and energy != float('inf')):
-        failures.append(f'energy {energy}')
+        failures.append(f'sibenik energy {energy}')
     if has_nan or has_neg:
-        failures.append(f'nan={has_nan} neg={has_neg}')
+        failures.append(f'sibenik nan={has_nan} neg={has_neg}')
     if tuple(img.shape) != (HEIGHT, WIDTH, 3) or not bool(torch.isfinite(img).all()):
         failures.append('blurred image is not finite [1080, 1920, 3]')
-    for name in KERNELS:
-        if launches[name] <= 0:
-            failures.append(f'{name}: no launch on the main path')
-        if plain_on_cuda[name]:
-            failures.append(f'{name}: plain version ran on CUDA')
+    for name in SIBENIK_KERNELS:
+        if sib_launches[name] <= 0:
+            failures.append(f'{name}: no launch on the sibenik path')
+    if sib_launches['traverse_packet']:
+        failures.append('traverse_packet launched on the v2 sibenik path')
+    if any(plain_on_cuda.values()):
+        failures.append(f'plain versions ran on CUDA: {plain_on_cuda}')
+    for name in SIBENIK_KERNELS:
+        launches[name] = sib_launches[name]
 
     results = {}
 
-    # ---- kernel vs plain: traversal on the captured waves ----
-    trav_ms = trav_plain_ms = trav_err = 0.0
+    # ---- kernel vs plain: both traversals on the captured waves ----
+    acc = {k: dict(ms=0.0, plain_ms=0.0, err=0.0, bytes=0.0, ops=0.0)
+           for k in ('traverse', 'traverse_packet')}
+    tables = tp1.PacketTables(pt.dyn.packet_inner, pt.dyn.packet_leaf,
+                              pt.dyn.depth)
     for call, wave in zip((2, 3, 4), ('primary', 'shadow', 'bounce-1')):
         (table, ro, rd, t0, live, stop), kw = trav.saved[call]
         want_uv = kw.get('want_uv', False)
+        any_hit = bool(stop.all())
         ms, (t, gid, found, u, v) = cuda_ms(
             lambda: tp2.traverse_merged(table, ro, rd, t0, live, stop, want_uv),
             reps=3, warmup=1)
+        st2 = {}
         pms, (pt_, pgid, pfound, pu, pv) = cuda_ms(
             lambda: tp2.traverse_merged_ref(table, ro, rd, t0, live, stop,
-                                            want_uv))
+                                            want_uv, stats=st2))
         same_found = bool(torch.equal(found, pfound))
         t_bits = int((t.view(torch.int32) != pt_.view(torch.int32)).sum())
         gid_diff = int(((gid != pgid) & found).sum())
+        hits = max(int(found.sum()), 1)
         err = float((t - pt_)[found].abs().max()) if bool(found.any()) else 0.0
         uv_err = (float(torch.maximum((u - pu).abs(), (v - pv).abs())[found].max())
                   if want_uv and bool(found.any()) else 0.0)
+        n_bytes, n_ops = traversal_work(ro.shape[0], 9 + (8 if want_uv else 0),
+                                        st2)
         log(f'traverse {wave}: {ro.shape[0]} rays, {int(live.sum())} live, '
-            f'{int(found.sum())} hits | kernel {ms:.3f} ms, plain {pms:.1f} ms '
-            f'| found equal={same_found}, t bit mismatches={t_bits}, '
-            f'gid mismatches={gid_diff}, max|dt|={err}, max|duv|={uv_err}')
+            f'{hits} hits, {st2["inner"]} inner + {st2["leaf"]} leaf visits | '
+            f'kernel {ms:.3f} ms, plain {pms:.1f} ms, bound '
+            f'{bound(n_bytes, n_ops)[0]:.4f} ms | found equal={same_found}, '
+            f't bit mismatches={t_bits}, gid mismatches={gid_diff}, '
+            f'max|dt|={err}, max|duv|={uv_err}')
         if not same_found or t_bits:
             failures.append(f'traverse {wave}: kernel disagrees with plain')
-        if gid_diff > 0.001 * max(int(found.sum()), 1):
+        if gid_diff > 0.001 * hits:
             failures.append(f'traverse {wave}: {gid_diff} gid mismatches')
         if uv_err > 1e-6:
             failures.append(f'traverse {wave}: uv differ by {uv_err}')
-        trav_ms += ms
-        trav_plain_ms += pms
-        trav_err = max(trav_err, err)
-    results['traverse'] = (trav_err, trav_ms, trav_plain_ms)
+        a = acc['traverse']
+        a['ms'] += ms
+        a['plain_ms'] += pms
+        a['err'] = max(a['err'], err)
+        a['bytes'] += n_bytes
+        a['ops'] += n_ops
+
+        # v1 on the same wave (the dispatch walks any-hit waves cheap)
+        ms1, (t1, gid1, found1) = cuda_ms(
+            lambda: tp1.traverse_split(tables, ro, rd, t0, live, stop, any_hit),
+            reps=3, warmup=1)
+        st1 = {}
+        pms1, (pt1, pgid1, pfound1) = cuda_ms(
+            lambda: tp1.traverse_packet_ref(tables, ro, rd, t0, live, stop,
+                                            any_hit, stats=st1))
+        same_found1 = bool(torch.equal(found1, pfound1))
+        t_bits1 = int((t1.view(torch.int32) != pt1.view(torch.int32)).sum())
+        gid_diff1 = int(((gid1 != pgid1) & found1).sum())
+        err1 = float((t1 - pt1)[found1].abs().max()) if bool(found1.any()) else 0.0
+        # against v2: found equal; closest t equal except where two triangles
+        # tie to within rounding at an edge and the visit order picks the
+        # other one (then the ids differ too)
+        v2_found = bool(torch.equal(found1, found))
+        t_off = found1 & (t1.view(torch.int32) != t.view(torch.int32))
+        n_t_off = int(t_off.sum())
+        tie_only = bool((gid1 != gid)[t_off].all()) if n_t_off else True
+        rel_off = (float(((t1 - t).abs() / t.abs().clamp_min(1e-30))[t_off].max())
+                   if n_t_off else 0.0)
+        n_bytes1, n_ops1 = traversal_work(ro.shape[0], 9, st1)
+        log(f'traverse_packet {wave}: {st1["inner"]} inner + {st1["leaf"]} leaf '
+            f'visits | kernel {ms1:.3f} ms, plain {pms1:.1f} ms, bound '
+            f'{bound(n_bytes1, n_ops1)[0]:.4f} ms | vs plain: found '
+            f'equal={same_found1}, t bit mismatches={t_bits1}, gid mismatches='
+            f'{gid_diff1} | vs v2: found equal={v2_found}, t differs on '
+            f'{n_t_off} rays (all ties={tie_only}, max rel {rel_off:.2e})')
+        if not same_found1 or t_bits1:
+            failures.append(f'traverse_packet {wave}: kernel disagrees with plain')
+        if gid_diff1 > 0.001 * hits:
+            failures.append(f'traverse_packet {wave}: {gid_diff1} gid mismatches')
+        if not v2_found:
+            failures.append(f'traverse_packet {wave}: found differs from v2')
+        if not any_hit and (not tie_only or n_t_off > 0.001 * hits
+                            or rel_off > 1e-5):
+            failures.append(f'traverse_packet {wave}: t differs from v2 on '
+                            f'{n_t_off} rays')
+        a = acc['traverse_packet']
+        a['ms'] += ms1
+        a['plain_ms'] += pms1
+        a['err'] = max(a['err'], err1)
+        a['bytes'] += n_bytes1
+        a['ops'] += n_ops1
+    for name, a in acc.items():
+        results[name] = dict(max_abs_err=a['err'], ms=a['ms'],
+                             plain_ms=a['plain_ms'], library_ms=None)
+        results[name]['bound_ms'], results[name]['bound_by'] = bound(
+            a['bytes'], a['ops'])
 
     # ---- kernel vs plain: guiding scatter on the first converge sample ----
     (e, w, seg, n_bins), _ = scat.saved[0]
@@ -211,15 +379,25 @@ def main() -> int:
                             reps=5, warmup=1)
     pms, (pe, pw) = cuda_ms(lambda: gs_mod.segment_sum_pairs_ref(e, w, seg, n_bins),
                             reps=5, warmup=1)
+    # the library yardstick: one index_add_ of the (e, w) pairs
+    idx = seg.to(torch.int64)
+    pairs = torch.stack([e, w], dim=1)
+    lib_out = torch.zeros((n_bins + 1, 2), dtype=torch.float32, device='cuda')
+    lms, _ = cuda_ms(lambda: lib_out.index_add_(0, idx, pairs), reps=5, warmup=1)
     err = float(torch.maximum((ke - pe).abs().max(), (kw_ - pw).abs().max()))
     ok = (torch.allclose(ke, pe, rtol=1e-5, atol=1e-5)
           and torch.allclose(kw_, pw, rtol=1e-5, atol=1e-5))
-    log(f'guiding_scatter: {e.shape[0]} updates ({int((seg < n_bins).sum())} '
-        f'kept) into {n_bins} bins | kernel {ms:.3f} ms, plain {pms:.3f} ms '
-        f'| max|d|={err}, within rtol 1e-5: {ok}')
+    kept = int((seg < n_bins).sum())
+    b = bound(4 * e.shape[0] + 8 * kept + 8 * n_bins, 2 * kept)
+    log(f'guiding_scatter: {e.shape[0]} updates ({kept} kept) into {n_bins} '
+        f'bins | kernel {ms:.3f} ms, plain {pms:.3f} ms, index_add_ {lms:.3f} '
+        f'ms, bound {b[0]:.4f} ms ({b[1]}) | max|d|={err}, within rtol 1e-5: '
+        f'{ok}')
     if not ok:
         failures.append('guiding_scatter: kernel disagrees with plain')
-    results['guiding_scatter'] = (err, ms, pms)
+    results['guiding_scatter'] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
+                                      bound_ms=b[0], bound_by=b[1],
+                                      library_ms=lms)
 
     # ---- kernel vs plain: blur on the final accumulators ----
     n = float(pt.sample_idx)
@@ -231,11 +409,98 @@ def main() -> int:
     err = float((kout - pout).abs().max())
     ok = bool(torch.isfinite(kout).all()) and torch.allclose(kout, pout,
                                                              rtol=1e-6, atol=0)
-    log(f'blur: {WIDTH}x{HEIGHT}, n={n} | kernel {ms:.3f} ms, plain {pms:.3f} ms'
-        f' | max|d|={err}, within rtol 1e-6: {ok}')
+    # accumulators (2 x f32x4) read once, the f32x3 image written once; per
+    # pixel 7 horizontal taps x 3 channels x 5 ops and 8 vertical x 3 x 2,
+    # plus the weight sums and 6 divides
+    px = WIDTH * HEIGHT
+    b = bound(px * (32 + 12), px * (7 * 3 * 5 + 8 * 3 * 2 + 15 + 6))
+    log(f'blur: {WIDTH}x{HEIGHT}, n={n} | kernel {ms:.3f} ms, plain {pms:.3f} '
+        f'ms, bound {b[0]:.4f} ms ({b[1]}) | max|d|={err}, within rtol 1e-6: '
+        f'{ok}')
     if not ok:
         failures.append('blur: kernel disagrees with plain')
-    results['blur'] = (err, ms, pms)
+    results['blur'] = dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b[0],
+                           bound_by=b[1], library_ms=None)
+    del pt, scene, trav, scat
+    torch.cuda.empty_cache()
+
+    # ---- path 2: the CLI on the animated outside scene (v1, then v2) ----
+    with tempfile.TemporaryDirectory() as tmp:
+        renders = {}
+        for v1 in (True, False):
+            tag = 'v1' if v1 else 'v2'
+            args = OUTSIDE_ARGS + ['--out', os.path.join(tmp, f'{tag}.png'),
+                                   '--state', os.path.join(tmp, f'{tag}.txt')]
+            kernels.reset_counts()
+            t = time.perf_counter()
+            rc, err_text, app, out_scene = run_cli(cli_main, args, v1)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            got = dict(kernels.LAUNCHES)
+            plain = dict(kernels.PLAIN_ON_CUDA)
+            m = re.search(r'^energy (\S+) nan=(\w+) neg=(\w+)$', err_text, re.M)
+            log(f'outside {tag}: rc={rc}, {wall:.2f} s wall, {app.sample_idx} '
+                f'samples, refits {out_scene.refits}; launches {got}; plain '
+                f'versions on CUDA: {plain}')
+            if rc != 0 or m is None:
+                failures.append(f'outside {tag}: CLI failed (rc={rc})')
+                continue
+            energy = float(m.group(1))
+            if not (0 < energy < float('inf')) or m.group(2) != 'False' \
+                    or m.group(3) != 'False':
+                failures.append(f'outside {tag}: energy {m.group(0)}')
+            if os.path.getsize(os.path.join(tmp, f'{tag}.png')) == 0:
+                failures.append(f'outside {tag}: empty PNG')
+            if out_scene._refit_templates is None or out_scene.refits < 1:
+                failures.append(f'outside {tag}: the refit path was not taken')
+            if any(plain.values()):
+                failures.append(f'outside {tag}: plain versions on CUDA {plain}')
+            if v1:
+                for name in OUTSIDE_KERNELS:
+                    if got[name] <= 0:
+                        failures.append(f'{name}: no launch on the outside path')
+                if got['traverse']:
+                    failures.append('traverse launched with PACKET_V1 on')
+                launches['traverse_packet'] = got['traverse_packet']
+                log(f'outside v1 per frame: launches {got} over '
+                    f'{app.sample_idx} samples in one clearing frame')
+                # refit on the card against a forced full rebuild
+                refit = out_scene.dynamic_arrays('cuda')
+                out_scene._refit_templates = None
+                out_scene._dyn_cache = None
+                full = out_scene.dynamic_arrays('cuda')
+                worst = 0.0
+                for f in ('packet_inner', 'packet_leaf', 'packet_merged'):
+                    a, b_ = getattr(refit, f), getattr(full, f)
+                    nan_ok = a.shape == b_.shape and bool(
+                        torch.equal(torch.isnan(a), torch.isnan(b_)))
+                    d = float((a - b_)[~torch.isnan(a)].abs().max()) if nan_ok \
+                        else float('inf')
+                    worst = max(worst, d)
+                    if not nan_ok or d > 2e-4:
+                        failures.append(f'refit {f}: max|d|={d}, NaN slots '
+                                        f'equal={nan_ok}')
+
+                def canon(dy):
+                    key = dy.tri_inst.long() * (1 << 31) + dy.tri_gid.long()
+                    return dy.world_tris[torch.argsort(key)]
+                d = float((canon(refit) - canon(full)).abs().max())
+                worst = max(worst, d)
+                if d > 2e-4:
+                    failures.append(f'refit world_tris: max|d|={d}')
+                log(f'refit on the card vs full rebuild: max|d|={worst} '
+                    f'(atol 2e-4, NaN slots equal)')
+            renders[tag] = app.lum.clone()
+            del app, out_scene
+        if len(renders) == 2:
+            close = torch.isclose(renders['v1'][:, :3], renders['v2'][:, :3],
+                                  rtol=1e-3, atol=1e-5).all(dim=1)
+            share = float(close.float().mean())
+            log(f'outside v1 vs v2 (refit-derived merged table): {share:.6f} of '
+                f'pixels agree within rtol 1e-3')
+            if share < 0.995:
+                failures.append(f'outside: only {share:.6f} of pixels agree '
+                                f'between v1 and v2')
 
     # ---- end to end on a small input: the room on the card vs the CPU ----
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -257,8 +522,13 @@ def main() -> int:
     if close < 0.99:
         failures.append(f'room render: only {close:.4f} of pixels agree')
 
-    if 'jax' in sys.modules and sys.modules['jax'] is not None:
-        failures.append('jax was imported')
+    loaded = sorted(m for m in sys.modules
+                    if (m in ('jax', 'cuda_pathtracer_tpu')
+                        or m.startswith(('jax.', 'cuda_pathtracer_tpu.')))
+                    and sys.modules[m] is not None)
+    if loaded:
+        failures.append(f'modules of JAX or the JAX package were imported: '
+                        f'{loaded}')
     if failures:
         for f in failures:
             print('FAIL: ' + f, file=sys.stderr)
@@ -266,8 +536,7 @@ def main() -> int:
 
     print(json.dumps({'kernels': [
         {'name': name, 'route': 'cuda', 'source': src, 'replaces': rep,
-         'launches': launches[name], 'max_abs_err': results[name][0],
-         'ms': results[name][1], 'plain_ms': results[name][2]}
+         'launches': launches[name], **results[name]}
         for name, (src, rep) in KERNELS.items()]}))
     print(card)
     print(json.dumps({'ok': True, 'device': {

@@ -5,7 +5,7 @@ and ``Camera`` with every leaf already a numpy array (the caller applies
 ``np.asarray`` to each leaf, e.g. ``jax.tree.map(np.asarray, x)``) and returns
 the port's NamedTuples on ``device``. Fields the port dropped (``sky_pairs``,
 ``nmap_marker``, the atlas texel pairs, ``tri_meta``, ``tri_blocks``, the
-wide / split / threaded tables, ``bounds``) are not read. Imports no JAX.
+wide and threaded tables, ``bounds``) are not read. Imports no JAX.
 """
 from __future__ import annotations
 
@@ -35,9 +35,10 @@ def dynamic_arrays(dy, depth: int, device) -> DynamicArrays:
     """``depth`` is the merged tree's depth (the JAX scene's
     ``wide_depth``), which the JAX DynamicArrays does not carry."""
     fields = {f: _t(getattr(dy, f), device) for f in DynamicArrays._fields
-              if f not in ('tri_gid', 'tri_inst', 'depth')}
+              if f not in ('tri_gid', 'tri_inst', 'world_tris', 'depth')}
     return DynamicArrays(tri_gid=_t(dy.world.tri_gid, device),
                          tri_inst=_t(dy.world.tri_inst, device),
+                         world_tris=_t(dy.world.tris, device),
                          depth=int(depth), **fields)
 
 

@@ -9,7 +9,7 @@ import torch
 
 from . import rng as _rng
 from . import vecmath as vm
-from cuda_pathtracer_tpu.constants import PI
+from ..constants import PI
 
 
 class Camera(NamedTuple):
@@ -21,7 +21,7 @@ class Camera(NamedTuple):
 
     @staticmethod
     def create(eye, view_dir, d=1.5, focal_length=5.0, aperture=0.01,
-               device='cpu') -> 'Camera':
+               device='cuda') -> 'Camera':
         def f(x):
             return torch.as_tensor(x, dtype=torch.float32, device=device)
         return Camera(f(eye), f(view_dir), f(d), f(focal_length), f(aperture))

@@ -17,7 +17,7 @@ from typing import NamedTuple
 
 import torch
 
-from cuda_pathtracer_tpu.constants import PI
+from ..constants import PI
 
 M32 = 0xFFFFFFFF
 _SCALE = 2.3283064365387e-10  # 2^-32, src/use_cuda.h:80-85

@@ -16,7 +16,7 @@
 // the read-only path (__ldg). No shared memory, no packets: making it fast
 // (ray sorting, wavefronts, TMA row prefetch) is later work.
 //
-// Hazards, each handled below:
+// Hazards, each handled here or in traverse_common.cuh:
 //  * NaN boxes: empty child slots hold NaN boxes. fminf/fmaxf DROP a NaN
 //    operand and would "hit" a slot that does not exist; nan_min/nan_max
 //    propagate it like jnp.minimum/torch.minimum, so every compare fails.
@@ -30,35 +30,17 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "traverse_common.cuh"
+
 namespace {
 
-constexpr int ROW = 128;
-constexpr int ARITY = 16;
-constexpr int LEAF_MAX = 12;
-constexpr int PBOX0 = 0;
+using namespace cpt;
+
 constexpr int PMETA = 96;
-constexpr int PTRIS = 0;
 constexpr int PGIDS = 108;
 constexpr int META_BASE_BITS = 20;
 // stack entries per thread; the wrapper checks depth + 2 <= MAX_STACK
 constexpr int MAX_STACK = 48;
-constexpr float BIG = 3.0e38f;
-constexpr float MT_DET_EPS = 1e-4f;
-constexpr float TINY = 1e-20f;
-
-__device__ __forceinline__ float nan_min(float a, float b) {
-  return (a < b || a != a) ? a : b;
-}
-__device__ __forceinline__ float nan_max(float a, float b) {
-  return (a > b || a != a) ? a : b;
-}
-
-// ops/intersect.py::safe_inv_dir
-__device__ __forceinline__ float safe_inv(float d) {
-  float sign = d >= 0.0f ? 1.0f : -1.0f;
-  float denom = fabsf(d) < TINY ? sign * TINY : d;
-  return 1.0f / denom;
-}
 
 __global__ void traverse_kernel(const float* __restrict__ table,
                                 const float* __restrict__ ro,
@@ -80,10 +62,7 @@ __global__ void traverse_kernel(const float* __restrict__ table,
   float bu = 0.0f, bv = 0.0f;
   if (live[i]) {
     const bool stop_on_hit = stop[i] != 0;
-    const float ox = ro[3 * i], oy = ro[3 * i + 1], oz = ro[3 * i + 2];
-    const float dx = rd[3 * i], dy = rd[3 * i + 1], dz = rd[3 * i + 2];
-    const float ivx = safe_inv(dx), ivy = safe_inv(dy), ivz = safe_inv(dz);
-    const float oivx = ox * ivx, oivy = oy * ivy, oivz = oz * ivz;
+    const Ray r = make_ray(ro, rd, i);
 
     // entry: hitmask (16 bits) | meta << 16
     unsigned long long stack[MAX_STACK];
@@ -97,20 +76,8 @@ __global__ void traverse_kernel(const float* __restrict__ table,
         unsigned hit = 0;
 #pragma unroll
         for (int k = 0; k < ARITY; ++k) {
-          const float lox = __ldg(row + PBOX0 + 0 * ARITY + k);
-          const float loy = __ldg(row + PBOX0 + 1 * ARITY + k);
-          const float loz = __ldg(row + PBOX0 + 2 * ARITY + k);
-          const float hix = __ldg(row + PBOX0 + 3 * ARITY + k);
-          const float hiy = __ldg(row + PBOX0 + 4 * ARITY + k);
-          const float hiz = __ldg(row + PBOX0 + 5 * ARITY + k);
-          const float t0x = lox * ivx - oivx, t1x = hix * ivx - oivx;
-          const float t0y = loy * ivy - oivy, t1y = hiy * ivy - oivy;
-          const float t0z = loz * ivz - oivz, t1z = hiz * ivz - oivz;
-          const float tmin = nan_max(nan_max(nan_min(t0x, t1x), nan_min(t0y, t1y)),
-                                     nan_min(t0z, t1z));
-          const float tmax = nan_min(nan_min(nan_max(t0x, t1x), nan_max(t0y, t1y)),
-                                     nan_max(t0z, t1z));
-          if (tmax >= nan_max(tmin, 0.0f) && tmin < t) hit |= 1u << k;
+          float tmin;
+          if (slab(row, k, r, t, tmin)) hit |= 1u << k;
         }
         if (hit) {
           const unsigned long long meta = (unsigned)__ldg(row_i + PMETA);
@@ -123,30 +90,8 @@ __global__ void traverse_kernel(const float* __restrict__ table,
         bool take = false;
 #pragma unroll 2
         for (int k = 0; k < LEAF_MAX; ++k) {
-          const float v0x = __ldg(row + PTRIS + 0 * LEAF_MAX + k);
-          const float v0y = __ldg(row + PTRIS + 1 * LEAF_MAX + k);
-          const float v0z = __ldg(row + PTRIS + 2 * LEAF_MAX + k);
-          const float e1x = __ldg(row + PTRIS + 3 * LEAF_MAX + k);
-          const float e1y = __ldg(row + PTRIS + 4 * LEAF_MAX + k);
-          const float e1z = __ldg(row + PTRIS + 5 * LEAF_MAX + k);
-          const float e2x = __ldg(row + PTRIS + 6 * LEAF_MAX + k);
-          const float e2y = __ldg(row + PTRIS + 7 * LEAF_MAX + k);
-          const float e2z = __ldg(row + PTRIS + 8 * LEAF_MAX + k);
-          const float hx = dy * e2z - dz * e2y;
-          const float hy = dz * e2x - dx * e2z;
-          const float hz = dx * e2y - dy * e2x;
-          const float a = (e1x * hx + e1y * hy) + e1z * hz;
-          const float f = 1.0f / (fabsf(a) < MT_DET_EPS ? 1.0f : a);
-          const float sx = ox - v0x, sy = oy - v0y, sz = oz - v0z;
-          const float u = f * ((sx * hx + sy * hy) + sz * hz);
-          const float qx = sy * e1z - sz * e1y;
-          const float qy = sz * e1x - sx * e1z;
-          const float qz = sx * e1y - sy * e1x;
-          const float v = f * ((dx * qx + dy * qy) + dz * qz);
-          const float tt = f * ((e2x * qx + e2y * qy) + e2z * qz);
-          const bool ok = fabsf(a) >= MT_DET_EPS && u >= 0.0f && u <= 1.0f &&
-                          v >= 0.0f && u + v <= 1.0f && tt > 0.0f && tt < t;
-          if (ok) {
+          float tt, u, v;
+          if (moller(row, k, r, t, tt, u, v)) {
             const int g = __ldg(row_i + PGIDS + k);
             if (!take || tt < leaf_t || (tt == leaf_t && g < leaf_g)) {
               leaf_t = tt;

@@ -13,7 +13,7 @@ import torch
 
 from ..core import vecmath as vm
 from ..ops.guiding_scatter import segment_sum_pairs
-from cuda_pathtracer_tpu.constants import EPS, GUIDE_BUCKETS, MAX_CACHE_DEPTH
+from ..constants import EPS, GUIDE_BUCKETS, MAX_CACHE_DEPTH
 
 # sample-cache entry types (SAMPLE_TYPE, src/types.h:337)
 SAMPLE_IGNORE = 0

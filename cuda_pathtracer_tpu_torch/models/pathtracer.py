@@ -21,7 +21,7 @@ from .shading import TraceState, shade
 from ..core import camera as cam_mod
 from ..core import rng as _rng
 from ..ops.dispatch import trace
-from cuda_pathtracer_tpu.constants import MAX_CACHE_DEPTH, MAX_RAY_DEPTH
+from ..constants import MAX_CACHE_DEPTH, MAX_RAY_DEPTH
 
 # the reference trains the radiance cache for the first 100 converge samples
 # (HCACHE && converge && sampleIndex < 100, src/pathtracer.h:292)
@@ -94,8 +94,8 @@ class Pathtracer:
     """Progressive renderer (the Application subclass,
     src/pathtracer.h:46-71): host-side sample loop over render_sample.
 
-    The scene's dynamic arrays are built once here: the port has no
-    animation handlers or refit yet, so they never go stale."""
+    A clearing frame re-reads the scene's dynamic arrays, which the scene
+    caches until an invalidation and then refits on the device."""
 
     def __init__(self, scene, width: int = 640, height: int = 480,
                  device='cuda', skydome: str | None = None,
@@ -121,9 +121,13 @@ class Pathtracer:
         self.bn_lanes = bn[(lanes // width) % bn.shape[0],
                            (lanes % width) % bn.shape[1]]
 
-    def render(self, camera, should_clear: bool = False):
-        """One display frame (Pathtracer::Render, src/pathtracer.h:224-302)."""
+    def render(self, camera, current_time: float = 0.0,
+               frame_time: float = 0.0, should_clear: bool = False):
+        """One display frame (Pathtracer::Render, src/pathtracer.h:224-302).
+        ``current_time`` and ``frame_time`` are the reference's arguments;
+        the scene's handlers read the time in ``Scene.update``."""
         if should_clear:
+            self.dyn = self.scene.dynamic_arrays(self.device)
             self.lum, self.alb = film.clear_accumulators(
                 self.width * self.height, self.device)
             self.sample_idx = 0

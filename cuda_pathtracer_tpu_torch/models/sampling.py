@@ -11,7 +11,7 @@ import torch
 
 from ..core import rng as _rng
 from ..core import vecmath as vm
-from cuda_pathtracer_tpu.constants import PI, EPS, GUIDE_BUCKETS
+from ..constants import PI, EPS, GUIDE_BUCKETS
 
 
 def masked_rand(state: _rng.RandState, mask):

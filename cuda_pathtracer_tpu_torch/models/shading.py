@@ -23,10 +23,11 @@ from . import sky as sky_mod
 from .guiding import SAMPLE_IGNORE, SAMPLE_TERMINATE, SAMPLE_BUCKET, RadianceState
 from ..core import rng as _rng
 from ..core import vecmath as vm
+from ..ops import intersect as isect
 from ..ops.lookup import table_lookup
 from ..ops.traverse import Hit, PRIM_TRIANGLE, PRIM_SPHERE, PRIM_PLANE
 from ..scene.textures import sample_bilinear
-from cuda_pathtracer_tpu.constants import EPS, PI
+from ..constants import EPS, PI
 
 
 class TraceState(NamedTuple):
@@ -113,8 +114,10 @@ def shade(scene, dyn, ro, rd, hit: Hit, state: TraceState, ray_active,
           xs, ys, rand_idx: int, sample_idx: int, nee: bool, cache_on: bool,
           radiance: RadianceState, width: int, bn_sample) -> ShadeOutput:
     """One wavefront shade pass. ``ray_active`` marks lanes that carried a
-    ray this bounce; ``hit`` must carry the traversal's barycentrics
-    (trace(want_uv=True)); ``bn_sample`` is the per-lane blue-noise value."""
+    ray this bounce; ``hit`` carries the traversal's barycentrics
+    (trace(want_uv=True) on v2) or ``u = v = None`` (v1), and then textured
+    hits re-intersect their triangle; ``bn_sample`` is the per-lane
+    blue-noise value."""
     B = ro.shape[0]
     dev = ro.device
     zero3 = torch.zeros((), dtype=torch.float32, device=dev)
@@ -215,14 +218,21 @@ def shade(scene, dyn, ro, rd, hit: Hit, state: TraceState, ray_active,
                               torch.full_like(diffuse, 0.2))
         diffuse = _sel(is_plane, checker, diffuse)
 
-    # ---- texturing with the traversal's barycentrics (kernels.h:585-619) ----
+    # ---- texturing barycentrics (kernels.h:585-619) ----
     has_tex = is_tri & (tex_id >= 0)
     has_nmap = is_tri & (ntex_id >= 0)
-    tu, tv = hit.u, hit.v
-    w0 = 1.0 - tu - tv
-    uv_u = (uvs[:, 0] * w0 + uvs[:, 2] * tu) + uvs[:, 4] * tv
-    uv_v = (uvs[:, 1] * w0 + uvs[:, 3] * tu) + uvs[:, 5] * tv
     if scene.textures.texels.shape[0] > 1:
+        if hit.u is None:
+            # the v1 traversal gives no barycentrics: re-intersect the
+            # winning triangle from its world-space vertices
+            tri9 = dyn.world_tris[wt]
+            _, _, tu, tv = isect.ray_triangle(ro, rd, tri9[:, 0:3],
+                                              tri9[:, 3:6], tri9[:, 6:9])
+        else:
+            tu, tv = hit.u, hit.v
+        w0 = 1.0 - tu - tv
+        uv_u = (uvs[:, 0] * w0 + uvs[:, 2] * tu) + uvs[:, 4] * tv
+        uv_v = (uvs[:, 1] * w0 + uvs[:, 3] * tu) + uvs[:, 5] * tv
         texel = sample_bilinear(scene.textures, torch.clamp_min(tex_id, 0),
                                 uv_u, uv_v)
         diffuse = _sel(has_tex, diffuse * texel, diffuse)

@@ -7,7 +7,7 @@ from __future__ import annotations
 import torch
 
 from ..scene.textures import bilinear_wrap
-from cuda_pathtracer_tpu.constants import PI
+from ..constants import PI
 
 
 def normal_to_uv(n):

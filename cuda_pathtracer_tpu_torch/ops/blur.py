@@ -18,7 +18,7 @@ import ctypes
 import torch
 
 from . import kernels
-from cuda_pathtracer_tpu.constants import PI
+from ..constants import PI
 
 H_TAPS = tuple(range(-3, 4))
 V_TAPS = tuple(range(-4, 4))

@@ -1,15 +1,37 @@
 """Primitive intersection (counterpart of ``cuda_pathtracer_tpu/ops/intersect.py``;
 the HYBRID intersection functions of src/kernels.h:120-200).
 
-Every function broadcasts over leading batch axes. Triangles are tested inside
-the traversal (``ops/traverse_packet2.py``); spheres and planes here.
+Every function broadcasts over leading batch axes. The BVH walks test
+triangles inside the traversals (``ops/traverse_packet*.py``); here are the
+spheres and planes, and :func:`ray_triangle` for shading's re-intersect of a
+hit that came without barycentrics.
 """
 from __future__ import annotations
 
 import torch
 
 from ..core import vecmath as vm
-from cuda_pathtracer_tpu.constants import EPS
+from ..constants import EPS
+
+
+def ray_triangle(ro, rd, v0, v1, v2):
+    """Moller-Trumbore (src/kernels.h:169-188) with the 1e-4 determinant
+    cutoff. Shapes: ro/rd [..., 3]; v0/v1/v2 [..., 3]. Returns
+    (hit bool[...], t, u, v)."""
+    v0v1 = v1 - v0
+    v0v2 = v2 - v0
+    pvec = vm.cross(rd, v0v2)
+    det = vm.dot(v0v1, pvec)
+    small = torch.abs(det) < 1e-4
+    inv_det = 1.0 / torch.where(small, torch.ones_like(det), det)
+    tvec = ro - v0
+    u = vm.dot(tvec, pvec) * inv_det
+    qvec = vm.cross(tvec, v0v1)
+    v = vm.dot(rd, qvec) * inv_det
+    t = vm.dot(v0v2, qvec) * inv_det
+    hit = ~small & (u >= 0.0) & (u <= 1.0) & (v >= 0.0) & (u + v <= 1.0) \
+        & (t > 0.0)
+    return hit, t, u, v
 
 
 def ray_sphere(ro, rd, center, radius):

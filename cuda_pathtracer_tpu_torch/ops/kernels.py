@@ -1,8 +1,9 @@
 """Build, load and count the hand-written CUDA kernels under ``csrc/``.
 
-All ``csrc/*.cu`` files compile with one ``nvcc`` call into one shared
-library with a plain C interface, loaded with ``ctypes`` (no PyTorch headers,
-so a build takes seconds). The build runs at first use, goes to
+The ``csrc/*.cu`` files (and the ``.cuh`` headers they include) compile,
+one ``nvcc`` process per file in parallel, and link into one shared library
+with a plain C interface, loaded with ``ctypes`` (no PyTorch headers, so a
+build takes seconds). The build runs at first use, goes to
 ``cuda_pathtracer_tpu_torch/_build/`` (git-ignored) and is keyed by a hash of
 the sources and flags, so an edited source rebuilds and an unchanged one is
 reused. A failed build raises; nothing falls back to the plain versions.
@@ -31,9 +32,9 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, 'csrc')
 BUILD_DIR = os.path.join(_PKG, '_build')
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-O3', '-std=c++17',
-              '-shared', '-Xcompiler', '-fPIC', '-fmad=false', '-Xptxas', '-v']
+              '-Xcompiler', '-fPIC', '-fmad=false', '-Xptxas', '-v']
 
-NAMES = ('traverse', 'guiding_scatter', 'blur')
+NAMES = ('traverse', 'guiding_scatter', 'blur', 'traverse_packet')
 LAUNCHES = dict.fromkeys(NAMES, 0)
 PLAIN_ON_CUDA = dict.fromkeys(NAMES, 0)
 
@@ -47,7 +48,10 @@ _SIGNATURES = {
                           _P, _P]),
     'cpt_guiding_scatter': (_I, [_P, _P, _P, _I, _I, _P, _P, _P]),
     'cpt_blur': (_I, [_P, _P, _F, _P, _I, _I, _P, _P, _P]),
+    'cpt_traverse_packet': (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                 _P, _P, _P, _P]),
     'cpt_traverse_max_stack': (_I, []),
+    'cpt_traverse_packet_max_stack': (_I, []),
     'cpt_error_string': (ctypes.c_char_p, [_I]),
 }
 
@@ -91,20 +95,42 @@ def library_path() -> str:
 
 def build() -> str:
     """Compile the library unless an up-to-date one exists; returns its path.
-    The ptxas report (registers, spills) is kept beside it as ``.log``."""
+    One ``nvcc -c`` per source, all started together, then one link. The
+    commands and the ptxas report (registers, spills) are kept beside the
+    library as ``.log``."""
     so = library_path()
     if os.path.exists(so):
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f'{so}.{os.getpid()}.tmp'
-    cus = [s for s in _sources() if s.endswith('.cu')]
-    cmd = [_nvcc(), *NVCC_FLAGS, '-o', tmp, *cus]
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    stem = f'{so[:-3]}.{os.getpid()}'
+    nvcc = _nvcc()
+    jobs = []
+    for cu in (s for s in _sources() if s.endswith('.cu')):
+        obj = f'{stem}.{os.path.basename(cu)}.o'
+        cmd = [nvcc, *NVCC_FLAGS, '-c', '-o', obj, cu]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    log, failed = [], []
+    for cmd, _, proc in jobs:
+        out, err = proc.communicate()
+        log.append(' '.join(cmd) + '\n' + out + err)
+        if proc.returncode != 0:
+            failed.append(f'{os.path.basename(cmd[-1])} ({proc.returncode}):\n{err}')
+    if not failed:
+        cmd = [nvcc, *NVCC_FLAGS[:2], '-shared', '-o', f'{stem}.tmp',
+               *(o for _, o, _ in jobs)]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(' '.join(cmd) + '\n' + res.stdout + res.stderr)
+        if res.returncode != 0:
+            failed.append(f'link ({res.returncode}):\n{res.stderr}')
+    for _, obj, _ in jobs:
+        if os.path.exists(obj):
+            os.remove(obj)
     with open(so[:-3] + '.log', 'w') as f:
-        f.write(' '.join(cmd) + '\n' + res.stdout + res.stderr)
-    if res.returncode != 0:
-        raise RuntimeError(f'nvcc failed ({res.returncode}):\n{res.stderr}')
-    os.replace(tmp, so)
+        f.write('\n'.join(log))
+    if failed:
+        raise RuntimeError('nvcc failed: ' + '\n'.join(failed))
+    os.replace(f'{stem}.tmp', so)
     return so
 
 

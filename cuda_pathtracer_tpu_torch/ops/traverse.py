@@ -12,7 +12,7 @@ from typing import NamedTuple
 import torch
 
 from . import intersect as isect
-from cuda_pathtracer_tpu.constants import T_MAX
+from ..constants import T_MAX
 
 # primitive type tags (reference PRIMITIVE_TYPE, src/types.h:296)
 PRIM_TRIANGLE = 0

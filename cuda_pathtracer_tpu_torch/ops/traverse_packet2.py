@@ -31,7 +31,7 @@ import torch
 
 from . import intersect as isect
 from . import kernels
-from cuda_pathtracer_tpu.accel.wide import (ARITY, LEAF_MAX, INNER_BOX0,
+from ..accel.wide import (ARITY, LEAF_MAX, INNER_BOX0,
                                             INNER_REFS, LEAF_TRIS, LEAF_GIDS,
                                             LEAF_GID_MAX)
 
@@ -57,10 +57,20 @@ def _leaf_payload(leaf_row: np.ndarray) -> np.ndarray:
     return np.concatenate([fm[0], fm[1] - fm[0], fm[2] - fm[0]], axis=0).reshape(-1)
 
 
-def build_merged_table(wide_rows: np.ndarray, depth: int) -> MergedTable:
-    """The merged contiguous-children table from the wide table
-    (``accel/wide.py`` layout), in BFS order, bit-identical to the JAX
-    package's ``build_merged_table`` with its default slot order."""
+class MergedRefitMaps(NamedTuple):
+    """Static per-topology maps that derive the merged table from the
+    refitted v1 split tables (:func:`derive_merged`)."""
+    from_inner: torch.Tensor   # i64[NM] v1 inner row (junk where a leaf)
+    from_leaf: torch.Tensor    # i64[NM] v1 leaf row (junk where inner)
+    is_leaf: torch.Tensor      # bool[NM]
+    slot_order: torch.Tensor   # i64[NM, 16] merged slot -> wide slot
+    meta: torch.Tensor         # f32[NM] static meta word (int32 bits)
+    meta2: torch.Tensor        # f32[NM] static inner-slot mask (int32 bits)
+
+
+def _merged(wide_rows: np.ndarray):
+    """The merged rows in BFS order, with (row_map wide row -> merged row,
+    is_leaf per merged row, slot order per merged row)."""
     src = np.asarray(wide_rows, np.float32)
     tag = src[:, 0]
     n = len(src)
@@ -73,10 +83,14 @@ def build_merged_table(wide_rows: np.ndarray, depth: int) -> MergedTable:
             box[3:6, 0] = BIG
         rows[0, PBOX0:PBOX0 + 96] = box.reshape(-1)
         rows[0, PMETA] = np.int32(1).view(np.float32)   # base=1, n_inner=0
+        row_map = np.full(max(n, 1), -1, np.int32)
         if n and tag[0] < 0:
             rows[1, PTRIS:PTRIS + 9 * LEAF_MAX] = _leaf_payload(src[0])
             rows[1, PGIDS:PGIDS + LEAF_MAX] = src[0, LEAF_GIDS:LEAF_GID_MAX]
-        return MergedTable(rows, depth)
+        if n:
+            row_map[0] = 1
+        return (rows, row_map, np.array([False, True]),
+                np.tile(np.arange(ARITY, dtype=np.int32), (2, 1)))
 
     if tag[0] <= 0:
         raise ValueError('wide root must be an inner row')
@@ -86,9 +100,13 @@ def build_merged_table(wide_rows: np.ndarray, depth: int) -> MergedTable:
     # level-synchronous BFS: every non-root wide row is someone's child
     # exactly once, so the merged table has exactly n rows
     rows = np.zeros((n, ROW), np.float32)
+    row_map = np.full(n, -1, np.int32)
+    is_leaf_m = np.zeros(n, bool)
+    slot_order_m = np.tile(np.arange(ARITY, dtype=np.int32), (n, 1))
     iota = np.arange(ARITY, dtype=np.int32)
     frontier_old = np.array([0], np.int32)
     frontier_new = np.array([0], np.int32)
+    row_map[0] = 0
     next_free = 1
     while len(frontier_old):
         refs = refs_all[frontier_old]
@@ -116,9 +134,11 @@ def build_merged_table(wide_rows: np.ndarray, depth: int) -> MergedTable:
                                      | (n_inner << META_BASE_BITS)).view(np.float32)
         rows[frontier_new, PMETA2] = ((np.int32(1) << n_inner)
                                       - 1).astype(np.int32).view(np.float32)
+        slot_order_m[frontier_new] = order
         child_old = ordered_refs[ordered_valid]
         child_new = (bases[:, None] + iota[None, :].astype(np.int64))[
             ordered_valid].astype(np.int32)
+        row_map[child_old] = child_new
         child_is_inner = tag[child_old] > 0
         lo = child_old[~child_is_inner]
         ln = child_new[~child_is_inner]
@@ -129,21 +149,70 @@ def build_merged_table(wide_rows: np.ndarray, depth: int) -> MergedTable:
                                  fm[:, 2] - fm[:, 0]], axis=1)
             rows[ln, PTRIS:PTRIS + 9 * LEAF_MAX] = pk.reshape(len(lo), -1)
             rows[ln, PGIDS:PGIDS + LEAF_MAX] = src[lo, LEAF_GIDS:LEAF_GID_MAX]
+            is_leaf_m[ln] = True
         frontier_old = child_old[child_is_inner]
         frontier_new = child_new[child_is_inner]
     if next_free != n:
         raise ValueError(f'merged table has {next_free} rows, expected {n}')
-    return MergedTable(rows, depth)
+    return rows, row_map, is_leaf_m, slot_order_m
+
+
+def build_merged_table(wide_rows: np.ndarray, depth: int) -> MergedTable:
+    """The merged contiguous-children table from the wide table
+    (``accel/wide.py`` layout), in BFS order, bit-identical to the JAX
+    package's ``build_merged_table`` with its default slot order."""
+    return MergedTable(_merged(wide_rows)[0], depth)
+
+
+def build_refit_maps(wide_rows: np.ndarray, device) -> MergedRefitMaps:
+    """Compose the merged BFS mapping with the v1 split-table mapping, as
+    the JAX package's ``build_refit_maps``; tensors on ``device``."""
+    src = np.asarray(wide_rows, np.float32)
+    tag = src[:, 0]
+    inner_ids = np.flatnonzero(tag > 0)
+    leaf_ids = np.flatnonzero(tag < 0)
+    inner_pos = np.zeros(len(src), np.int64)
+    inner_pos[inner_ids] = np.arange(len(inner_ids))
+    leaf_pos = np.zeros(len(src), np.int64)
+    leaf_pos[leaf_ids] = np.arange(len(leaf_ids))
+    rows, row_map, is_leaf, slot_order = _merged(src)
+    old_of = np.zeros(len(rows), np.int64)
+    old_of[row_map] = np.arange(len(row_map))
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=device)
+    return MergedRefitMaps(
+        from_inner=t(inner_pos[old_of]), from_leaf=t(leaf_pos[old_of]),
+        is_leaf=t(is_leaf), slot_order=t(slot_order.astype(np.int64)),
+        meta=t(rows[:, PMETA]), meta2=t(rows[:, PMETA2]))
+
+
+def derive_merged(inner_rows, leaf_rows, maps: MergedRefitMaps):
+    """The merged table from refitted v1 split tables: row gathers and a
+    static slot permutation, on the tables' device (topology is frozen)."""
+    nm = maps.is_leaf.shape[0]
+    gi = inner_rows[maps.from_inner.clamp(0, inner_rows.shape[0] - 1)]
+    boxes = gi[:, :96].reshape(nm, 6, ARITY)
+    boxes = torch.gather(boxes, 2, maps.slot_order[:, None, :].expand(
+        nm, 6, ARITY)).reshape(nm, 96)
+    pad = torch.zeros((nm, ROW - 98), dtype=torch.float32,
+                      device=inner_rows.device)
+    inner_m = torch.cat([boxes, maps.meta[:, None], maps.meta2[:, None], pad],
+                        dim=1)
+    gl = leaf_rows[maps.from_leaf.clamp(0, leaf_rows.shape[0] - 1)]
+    return torch.where(maps.is_leaf[:, None], gl, inner_m)
 
 
 def traverse_merged_ref(table: MergedTable, ro, rd, t0, live, stop,
-                        want_uv: bool = False):
+                        want_uv: bool = False, stats: dict | None = None):
     """Plain PyTorch walk of the merged table, one stack per ray.
 
     ro, rd: f32[B, 3]; t0: f32[B] (the ray's t after the analytic prepass);
     live: bool[B] rays to trace; stop: bool[B] rays that end at their first
     hit (any-hit). Returns (t f32[B], gid i32[B] world-triangle id or -1,
     found bool[B], u, v) with u, v f32[B] when ``want_uv`` else None.
+    ``stats``, when given, receives the work this walk did: inner and leaf
+    visits (``inner``, ``leaf``) and the rows it touched (``rows``, bool[N]).
     """
     kernels.note_plain('traverse', ro)
     dev = ro.device
@@ -165,11 +234,19 @@ def traverse_merged_ref(table: MergedTable, ro, rd, t0, live, stop,
     act = live.clone()
     slot = torch.arange(ARITY, dtype=torch.int64, device=dev)
     big = torch.tensor(BIG, dtype=torch.float32, device=dev)
+    if stats is not None:
+        stats.update(inner=0, leaf=0, rows=torch.zeros(
+            rows.shape[0], dtype=torch.bool, device=dev))
     while True:
         idx = act.nonzero().squeeze(1)
         if idx.numel() == 0:
             break
         lf = is_leaf[idx]
+        if stats is not None:
+            n_leaf = int(lf.sum())
+            stats['leaf'] += n_leaf
+            stats['inner'] += idx.numel() - n_leaf
+            stats['rows'][cur[idx]] = True
 
         # inner visit: slab-test the 16 children, push the hitmask
         ii = idx[~lf]

@@ -1,18 +1,21 @@
 """Built-in scenes (counterpart of ``cuda_pathtracer_tpu/scene/builder.py``;
-src/sceneBuilder.h:119-218). Only ``sibenik`` is ported so far.
+src/sceneBuilder.h:15-218). ``outside`` and ``sibenik`` are ported; the
+other built-in scenes and chai scripts are not yet.
 
 Assets the repository does not ship degrade to procedural stand-ins of the
-same scale (``cuda_pathtracer_tpu/scene/procedural.py``). The one deviation
-from the JAX builder: ``cube.obj``, the emissive light, also falls back — to
-the 12-triangle cube of :func:`add_cube` — so NEE has a light to sample when
-the OBJ is absent.
+same scale (``scene/procedural.py``). The one deviation from the JAX
+builder: ``cube.obj`` also falls back, to the 12-triangle cube of
+:func:`add_cube`, so both scenes build without it (``outside``'s glass
+cubes; sibenik's emissive light, which NEE samples).
 """
 from __future__ import annotations
 
+import math
+
 import numpy as np
 
-from .scene import Scene, Material, GameObject, Sphere, PointLight
-from cuda_pathtracer_tpu.scene import procedural
+from .scene import Scene, Material, GameObject, Sphere, Plane, PointLight
+from . import procedural
 
 
 def _try_model(scene: Scene, filename, *args, fallback, **kwargs):
@@ -33,6 +36,62 @@ def add_cube(scene, material: int) -> int:
                   (0, 4, 5), (0, 5, 1), (2, 3, 7), (2, 7, 6),
                   (0, 2, 6), (0, 6, 4), (1, 5, 7), (1, 7, 3)])
     return scene.add_mesh(c[f[:, 0]], c[f[:, 1]], c[f[:, 2]], material)
+
+
+def get_outside_scene(asset_dirs=()) -> Scene:
+    """src/sceneBuilder.h:15-117: 10 animated glass cubes on a circle, a
+    checkerboard plane, three point lights. The cubes are ``cube.obj``,
+    or :func:`add_cube` when the file is not on the asset path."""
+    scene = Scene(asset_dirs=asset_dirs)
+    scene.interactive_depth = 5
+    scene.interactive_samples = 3
+
+    white_id = scene.add_material(Material.DIFFUSE((0.4,) * 3))
+
+    cube_mat = Material.DIFFUSE((1, 1, 1))
+    cube_mat.transmit = 1.0
+    cube_mat.refractive_index = 1.1
+    cube_mat.glossy = 0.02
+    cube_mat.absorption = (0.1, 0.5, 0.8)
+    cube_mat_id = scene.add_material(cube_mat)
+
+    # the additional materials the reference registers (kept for script parity)
+    scene.add_material(Material.DIFFUSE((0.8,) * 3))            # sibenikMat
+    teapot_mat = Material.DIFFUSE((1, 1, 1))
+    teapot_mat.reflect = 0.6
+    teapot_mat.glossy = 0.08
+    scene.add_material(teapot_mat)
+
+    cube_model = _try_model(scene, 'cube.obj', 1, (0, 0, 0), (0, 0, 0),
+                            cube_mat_id,
+                            fallback=lambda s: add_cube(s, cube_mat_id))
+    for i in range(10):
+        cube = GameObject(cube_model)
+        cube.kind = 1
+        cube.position[0] = 10 * math.sin(i * 2 * 3.1415926)
+        cube.position[2] = 10 * math.cos(i * 2 * 3.1415926)
+        cube.rotation[0] = i * 3.1415926
+        scene.add_object(cube)
+
+    def animate(s: Scene, keyboard, t):
+        """The circle animation handler (sceneBuilder.h:89-100)."""
+        f = 0.0
+        for obj in s.objects:
+            if obj.kind != 1:
+                continue
+            obj.position[0] = 10 * math.sin(f + t / 10.0)
+            obj.position[2] = 10 * math.cos(f + t / 10.0)
+            obj.rotation[0] = f
+            f += 2 * 0.3141592
+        s.invalidate()
+
+    scene.add_handler(animate)
+    scene.add_plane(Plane((0, -1, 0), -3, white_id))
+    scene.add_point_light(PointLight((-8, 5, 1), (50, 50, 50)))
+    scene.add_point_light(PointLight((-8, 5, -5), (50, 0, 0)))
+    scene.add_point_light(PointLight((-8, 5, 5), (0, 50, 0)))
+    scene.finalize()
+    return scene
 
 
 def get_sibenik_scene(asset_dirs=()) -> Scene:
@@ -95,8 +154,9 @@ def get_sibenik_scene(asset_dirs=()) -> Scene:
 
 
 def get_scene(name: str, asset_dirs=()) -> Scene:
-    """Scene dispatch (src/sceneBuilder.h:308-323); the other built-in
-    scenes and chai scripts are not ported yet."""
-    if name != 'sibenik':
-        raise ValueError(f'scene {name!r} is not ported (only sibenik)')
-    return get_sibenik_scene(asset_dirs=asset_dirs)
+    """Scene dispatch (src/sceneBuilder.h:308-323) over the ported scenes."""
+    builders = {'outside': get_outside_scene, 'sibenik': get_sibenik_scene}
+    if name not in builders:
+        raise ValueError(f'scene {name!r} is not ported yet (ported: '
+                         f'{", ".join(builders)})')
+    return builders[name](asset_dirs=asset_dirs)

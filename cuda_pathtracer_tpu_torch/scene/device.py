@@ -3,14 +3,15 @@
 src/types.h:689-703, plus its __constant__ lights, skydome and blue noise).
 
   * SceneArrays   — static for a scene's lifetime
-  * DynamicArrays — instances, emissive lights and the merged world BVH,
-    rebuilt when the scene is invalidated
+  * DynamicArrays — instances, emissive lights, the world triangles and the
+    world BVH tables, rebuilt or refitted when the scene is invalidated
 
 Left out against the JAX package, because they worked around TPU gather
-costs or Mosaic limits: ``sky_pairs``, the atlas texel pairs,
-``nmap_marker``, the float-valued ids of ``tri_meta`` (ids are int32 here,
-``tri_gid`` / ``tri_inst``), ``tri_blocks``, the threaded and wide world
-tables, the split v1 packet tables and the coherence-sort ``bounds``.
+costs or Mosaic limits or fed its XLA traversals: ``sky_pairs``, the atlas
+texel pairs, ``nmap_marker``, the float-valued ids and baked attributes of
+``tri_meta`` (ids are int32 here, ``tri_gid`` / ``tri_inst``; its world
+vertices are ``world_tris``), ``tri_blocks``, the threaded and wide world
+tables and the coherence-sort ``bounds``.
 """
 from __future__ import annotations
 
@@ -89,7 +90,15 @@ class DynamicArrays(NamedTuple):
     # and owning instance
     tri_gid: torch.Tensor           # i32[WT]
     tri_inst: torch.Tensor          # i32[WT]
-    # merged contiguous-children 16-ary world BVH, the traversal kernel's
-    # table (ops/traverse_packet2.py)
+    # world-space vertices v0|v1|v2 of each world triangle, in prim_id
+    # order: shading re-intersects the winning triangle from these when the
+    # trace returns no barycentrics (the v1 traversal)
+    world_tris: torch.Tensor        # f32[WT, 9]
+    # the split v1 packet tables (ops/traverse_packet.py), refitted on the
+    # device for animated frames (accel/refit.py)
+    packet_inner: torch.Tensor      # f32[Ni, 128]
+    packet_leaf: torch.Tensor       # f32[Nl, 128]
+    # merged contiguous-children 16-ary world BVH, the v2 traversal's table
+    # (ops/traverse_packet2.py); [0, 128] past its 2^20-row ceiling
     packet_merged: torch.Tensor     # f32[NM, 128]
-    depth: int                      # max depth of the merged tree
+    depth: int                      # max depth of the wide tree

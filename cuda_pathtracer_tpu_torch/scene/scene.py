@@ -1,11 +1,13 @@
 """Host-side scene graph (counterpart of ``cuda_pathtracer_tpu/scene/scene.py``;
 reference Scene, src/scene.h:120-402).
 
-The host build is numpy and the JAX package's numpy accel modules (binned-SAH
-BVH, threaded flattening, world BVH merge, 16-ary wide collapse);
-``to_device(device)`` exports the static SceneArrays and
-``dynamic_arrays(device)`` the instance, light and merged-BVH state as
-tensors on ``device``. Refit and animation handlers are not ported yet.
+The host build is numpy and the port's own copies of the JAX package's numpy
+accel modules (binned-SAH BVH, threaded flattening, world BVH merge, 16-ary
+wide collapse); ``to_device(device)`` exports the static SceneArrays and
+``dynamic_arrays(device)`` the instance, light, world-triangle and BVH-table
+state as tensors on ``device``. Animation handlers run in :meth:`Scene.update`;
+after the first full build, an invalidation that only moves objects refits
+the tables on the device (``accel/refit.py``) instead of rebuilding them.
 """
 from __future__ import annotations
 
@@ -13,20 +15,24 @@ import os
 import sys
 import time
 from dataclasses import dataclass, field
+from typing import Callable
 
 import numpy as np
 import torch
 
 from .device import SceneArrays, DynamicArrays
 from .textures import TextureAtlas, load_image
-from ..ops.traverse_packet2 import build_merged_table
-from cuda_pathtracer_tpu.accel.bvh import build_bvh
-from cuda_pathtracer_tpu.accel.flatten import thread_bvh, ThreadedBVH
-from cuda_pathtracer_tpu.accel.toplevel import build_world_bvh
-from cuda_pathtracer_tpu.accel.wide import build_wide_bvh, build_world_wide
-from cuda_pathtracer_tpu.core import transforms as tf
-from cuda_pathtracer_tpu.constants import EPS
-from cuda_pathtracer_tpu.scene import objloader
+from ..accel import refit as _refit
+from ..ops.traverse_packet import split_packet_tables
+from ..ops.traverse_packet2 import (build_merged_table, build_refit_maps,
+                                    derive_merged, META_BASE_BITS)
+from ..accel.bvh import build_bvh
+from ..accel.flatten import thread_bvh, ThreadedBVH
+from ..accel.toplevel import build_world_bvh
+from ..accel.wide import build_wide_bvh, build_world_wide
+from ..core import transforms as tf
+from ..constants import EPS
+from . import objloader
 
 NO_MATERIAL = -1  # the reference's 0xffffffff override marker
 
@@ -110,7 +116,10 @@ class Scene:
         self.spheres: list[Sphere] = []
         self.planes: list[Plane] = []
         self.point_lights: list[PointLight] = []
+        self.handlers: list[Callable] = []
         self.atlas = TextureAtlas()
+        self.invalid = False
+        self.attached = 0
         self.interactive_depth = 1
         self.interactive_samples = 1
         # concatenated triangle data (allVertices / allVertexData)
@@ -122,6 +131,13 @@ class Scene:
         self._bitangent = np.zeros((0, 3), np.float32)
         self._uv = np.zeros((0, 6), np.float32)
         self._tri_mat = np.zeros((0,), np.int32)
+        self._version = 0          # bumped whenever dynamic state changes
+        self._dyn_cache = None     # (version, device, DynamicArrays)
+        self._full_dyn = None      # the last full build's DynamicArrays
+        self._refit_templates = None   # accel/refit.py model-space tables
+        self._merged_maps = None   # ops/traverse_packet2.py refit maps
+        self._refit_key = None
+        self.refits = 0            # device refits taken so far
 
     # -- scriptable API (sceneBuilder.h:283-301) --
 
@@ -141,6 +157,17 @@ class Scene:
     def add_object(self, obj: GameObject) -> int:
         self.objects.append(obj)
         return len(self.objects) - 1
+
+    def add_handler(self, handler: Callable):
+        """Register ``handler(scene, keyboard, current_time)``, run by
+        :meth:`update` every frame (the reference's addHandler)."""
+        self.handlers.append(handler)
+
+    addHandler = add_handler
+
+    def invalidate(self):
+        self.invalid = True
+        self._version += 1
 
     def _resolve(self, filename: str) -> str:
         if os.path.exists(filename):
@@ -308,6 +335,7 @@ class Scene:
             raise ValueError('triangle attribute arrays out of step')
         if not self.materials:
             self.add_material(Material.DIFFUSE((0.4, 0.4, 0.4)))
+        self._version += 1
 
     def instances(self):
         """Instance transforms from GameObjects (ConvertToInstance,
@@ -322,6 +350,37 @@ class Scene:
             inverses[i] = tf.to_affine34(np.linalg.inv(m))
             overrides[i] = obj.material_id
         return transforms, inverses, overrides
+
+    def update(self, keyboard=None, current_time: float = 0.0):
+        """Per-frame host dynamics (src/scene.h:367-401): attach/move objects
+        with the keyboard, run the animation handlers, mark dynamic state
+        dirty. ``keyboard`` answers ``is_pressed(action)`` and
+        ``is_down(action)``; None skips the keys."""
+        self.invalid = False
+        if keyboard is not None:
+            for i in range(10):
+                if keyboard.is_pressed(f'attach_{i}'):
+                    self.attached = i
+            if 0 < self.attached <= len(self.objects):
+                obj = self.objects[self.attached - 1]
+                step = 0.04
+                moves = {'move_left': (0, -step), 'move_right': (0, step),
+                         'move_forward': (2, step), 'move_backward': (2, -step),
+                         'move_up': (1, step), 'move_down': (1, -step)}
+                for act, (axis, delta) in moves.items():
+                    if keyboard.is_down(act):
+                        obj.position[axis] += delta
+                        self.invalidate()
+                looks = {'look_left': (1, -step), 'look_right': (1, step),
+                         'look_up': (0, -step), 'look_down': (0, step)}
+                for act, (axis, delta) in looks.items():
+                    if keyboard.is_down(act):
+                        obj.rotation[axis] += delta
+                        self.invalidate()
+        for handler in self.handlers:
+            handler(self, keyboard, current_time)
+        if self.handlers:
+            self._version += 1
 
     # ------------------------------------------------------------------
     # device export
@@ -445,10 +504,32 @@ class Scene:
             sphere_packed=t(sphere_packed),
             plane_packed=t(plane_packed))
 
+    def _structure_key(self):
+        """Scene topology fingerprint: while unchanged, invalidations can use
+        the device refit instead of a full host rebuild."""
+        return (len(self.models),
+                tuple(o.model_id for o in self.objects),
+                tuple(int(o.material_id) for o in self.objects))
+
     def dynamic_arrays(self, device) -> DynamicArrays:
-        """Instances, world-space lights and the merged world BVH on
-        ``device`` — the full host build of the JAX package's
-        ``Scene.dynamic_arrays`` (its refit path is not ported)."""
+        """Instances, world-space lights, world triangles and the BVH tables
+        on ``device``, cached until the next invalidation (the counterpart of
+        the JAX package's ``Scene.dynamic_arrays``). After the first full
+        build, invalidations that only move things (animation handlers,
+        attached-object motion) refit on the device (accel/refit.py)."""
+        device = torch.device(device)
+        if device.type == 'cuda' and device.index is None:
+            # the tensors report 'cuda:N'; compare like with like
+            device = torch.device('cuda', torch.cuda.current_device())
+        if (self._dyn_cache is not None and self._dyn_cache[0] == self._version
+                and self._dyn_cache[1] == device):
+            return self._dyn_cache[2]
+        if (self._refit_templates is not None
+                and self._refit_key == self._structure_key()
+                and self._refit_templates.inner.device == device):
+            dyn = self._refit_dynamic_arrays()
+            self._dyn_cache = (self._version, device, dyn)
+            return dyn
         if not self.objects:
             raise ValueError('the scene has no objects to trace')
         transforms, inverses, overrides = self.instances()
@@ -460,24 +541,82 @@ class Scene:
             self._v0, self._v1, self._v2, inst_model, transforms)
         lv0, lv1, lv2, lnrm, lemis, light_packed = \
             self._light_arrays(transforms, overrides)
+        wtri_bases = [int(b) for b in wb.wtri_base]
         ww = build_world_wide([m.wide for m in self.models], inst_model,
-                              transforms, [int(b) for b in wb.wtri_base])
-        merged = build_merged_table(ww.rows, ww.depth).rows
-
-        inst_packed = np.zeros((len(self.objects), 16), np.float32)
-        inst_packed[:, 0:12] = transforms.reshape(-1, 12)
-        inst_packed[:, 12] = _i2f(overrides)
+                              transforms, wtri_bases)
+        ptab = split_packet_tables(ww.rows, ww.depth, device)
+        if len(ww.rows) < (1 << META_BASE_BITS):   # the 20-bit child base
+            merged = build_merged_table(ww.rows, ww.depth).rows
+            # static maps so device refits can re-derive the merged table
+            # from the refitted split tables
+            self._merged_maps = build_refit_maps(ww.rows, device)
+        else:
+            merged = np.zeros((0, 128), np.float32)
+            self._merged_maps = None
+        # the model-space templates of later move-only refits
+        self._refit_templates = _refit.build_templates(
+            [m.wide for m in self.models], inst_model, wtri_bases, wb,
+            self._v0, self._v1, self._v2, ww.depth, device)
+        self._refit_key = self._structure_key()
 
         def t(a, dtype=np.float32):
             return torch.as_tensor(np.ascontiguousarray(a, dtype), device=device)
-        return DynamicArrays(
+        dyn = DynamicArrays(
             inst_transform=t(transforms), inst_inv=t(inverses),
             inst_mat=t(overrides, np.int32),
             light_v0w=t(lv0), light_v1w=t(lv1), light_v2w=t(lv2),
             light_normal_w=t(lnrm), light_emission_w=t(lemis),
-            light_packed=t(light_packed), inst_packed=t(inst_packed),
+            light_packed=t(light_packed),
+            inst_packed=t(self._inst_packed(transforms, overrides)),
             tri_gid=t(wb.tri_gid, np.int32), tri_inst=t(wb.tri_inst, np.int32),
+            world_tris=t(np.concatenate([wb.tri_v0, wb.tri_v1, wb.tri_v2],
+                                        axis=1)),
+            packet_inner=ptab.inner, packet_leaf=ptab.leaf,
             packet_merged=t(merged), depth=int(ww.depth))
+        self._dyn_cache = (self._version, device, dyn)
+        self._full_dyn = dyn
+        return dyn
+
+    def _refit_dynamic_arrays(self) -> DynamicArrays:
+        """Move-only invalidation: instance matrices and the top rows on the
+        host, the tables and world triangles transformed on the device. The
+        world-triangle numbering (``tri_gid``, ``tri_inst``, the order of
+        ``world_tris``) stays the full build's."""
+        transforms, inverses, overrides = self.instances()
+        inst_boxes = np.empty((len(self.objects), 6), np.float32)
+        for i, o in enumerate(self.objects):
+            mb = self.models[o.model_id].bvh
+            mn, mx = tf.transform_box(mb.vmin[0], mb.vmax[0], transforms[i])
+            inst_boxes[i, 0:3] = mn
+            inst_boxes[i, 3:6] = mx
+        inner, leaf, wtris = _refit.refit_all(self._refit_templates,
+                                              transforms, inst_boxes)
+        lv0, lv1, lv2, lnrm, lemis, light_packed = \
+            self._light_arrays(transforms, overrides)
+        base = self._full_dyn
+        dev = inner.device
+
+        def t(a, dtype=np.float32):
+            return torch.as_tensor(np.ascontiguousarray(a, dtype), device=dev)
+        self.refits += 1
+        return base._replace(
+            inst_transform=t(transforms), inst_inv=t(inverses),
+            inst_mat=t(overrides, np.int32),
+            light_v0w=t(lv0), light_v1w=t(lv1), light_v2w=t(lv2),
+            light_normal_w=t(lnrm), light_emission_w=t(lemis),
+            light_packed=t(light_packed),
+            inst_packed=t(self._inst_packed(transforms, overrides)),
+            world_tris=wtris, packet_inner=inner, packet_leaf=leaf,
+            packet_merged=(derive_merged(inner, leaf, self._merged_maps)
+                           if self._merged_maps is not None
+                           else base.packet_merged))
+
+    @staticmethod
+    def _inst_packed(transforms, overrides):
+        inst_packed = np.zeros((len(transforms), 16), np.float32)
+        inst_packed[:, 0:12] = transforms.reshape(-1, 12)
+        inst_packed[:, 12] = _i2f(overrides)
+        return inst_packed
 
     def _light_arrays(self, transforms, overrides):
         """World-space emissive light triangles (the DTriangleLights of

@@ -1,11 +1,16 @@
-"""Run the JAX package's ``traverse_packet2`` Pallas kernel (interpret mode)
-on the small room and save its hits, for ``test_torch_traverse.py``.
+"""Run one of the JAX package's traversal Pallas kernels (interpret mode) on
+the small room and save its hits: ``traverse_packet2`` (v2) for
+``test_torch_traverse.py``, ``traverse_packet`` (v1) for
+``test_torch_traverse_packet.py``.
 
 Runs in its own process so the test can give XLA ``--xla_cpu_max_isa=AVX``:
 without FMA instructions XLA's CPU code rounds every product and sum the way
 the port does, so ``t`` can be compared bit for bit (with FMA, XLA contracts
 ``a*b + c`` and ``t`` moves by a few ulp). Usage:
-``python _torch_jax_traverse.py OUT.npz SHARE``.
+``python _torch_jax_traverse.py OUT.npz SHARE`` (v2 with that share-K
+schedule) or ``python _torch_jax_traverse.py OUT.npz v1`` (v1, once as a
+closest-hit call whose stop-on-hit lanes end at their first hit, once as an
+any-hit call on every lane, saved with the prefix ``any_``).
 """
 import os
 import sys
@@ -44,27 +49,42 @@ def rays():
     return ro, rd, t_max, active, stop
 
 
-def main(out: str, share: int):
+def main(out: str, mode: str):
     import jax
     import jax.numpy as jnp
     from _torch_room import build_room
+    from cuda_pathtracer_tpu.ops import traverse_packet as jtp
     from cuda_pathtracer_tpu.ops import traverse_packet2 as jtp2
     from cuda_pathtracer_tpu.scene import scene as js
     from cuda_pathtracer_tpu_torch.scene.builder import add_cube
     jax.config.update('jax_platforms', 'cpu')
     scene = build_room(js, add_cube)
     arr, dyn = scene.to_device(), scene.dynamic_arrays()
-    table = jtp2.MergedTable(dyn.packet_merged, scene.wide_depth)
     ro, rd, t_max, active, stop = rays()
-    h = jtp2.traverse_packet2(arr, table, jnp.asarray(ro), jnp.asarray(rd),
-                              t_max=jnp.asarray(t_max),
-                              active=jnp.asarray(active),
-                              stop_on_hit=jnp.asarray(stop),
-                              interpret=True, share=share, want_uv=True)
-    np.savez(out, ro=ro, rd=rd, t_max=t_max, active=active, stop=stop,
-             **{k: np.asarray(v) for k, v in h._asdict().items()})
+    J = jnp.asarray
+    saved = dict(ro=ro, rd=rd, t_max=t_max, active=active, stop=stop)
+    if mode == 'v1':
+        tables = jtp.PacketTables(dyn.packet_inner, dyn.packet_leaf,
+                                  scene.wide_depth)
+        h = jtp.traverse_packet(arr, tables, J(ro), J(rd), t_max=J(t_max),
+                                active=J(active), stop_on_hit=J(stop),
+                                interpret=True)
+        ha = jtp.traverse_packet(arr, tables, J(ro), J(rd), t_max=J(t_max),
+                                 active=J(active), any_hit=True,
+                                 interpret=True)
+        saved.update({'any_' + k: np.asarray(v)
+                      for k, v in ha._asdict().items() if v is not None})
+    else:
+        table = jtp2.MergedTable(dyn.packet_merged, scene.wide_depth)
+        h = jtp2.traverse_packet2(arr, table, J(ro), J(rd), t_max=J(t_max),
+                                  active=J(active), stop_on_hit=J(stop),
+                                  interpret=True, share=int(mode),
+                                  want_uv=True)
+    saved.update({k: np.asarray(v) for k, v in h._asdict().items()
+                  if v is not None})
+    np.savez(out, **saved)
 
 
 if __name__ == '__main__':
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-    main(sys.argv[1], int(sys.argv[2]))
+    main(sys.argv[1], sys.argv[2])

@@ -6,6 +6,9 @@ package's scene graph (``cuda_pathtracer_tpu.scene.scene`` or
 back one normal-mapped), an emissive ceiling quad, a glass sphere, a mirror
 sphere, a 12-triangle cube made with ``add_mesh`` and, below the open front,
 a checkerboard plane. A few hundred triangles, no files read.
+
+``write_cube_obj(dir)`` writes the ``cube.obj`` that the ``outside`` scene
+loads, for tests that build it through both packages.
 """
 import numpy as np
 
@@ -91,3 +94,17 @@ def build_room(scene_mod, add_cube):
     s.add_point_light(scene_mod.PointLight((0.0, 3.0, 0.0), (5.0, 5.0, 5.0)))
     s.finalize()
     return s
+
+
+def write_cube_obj(directory) -> str:
+    """Write ``cube.obj`` into ``directory``: the 12 triangles of
+    ``scene/builder.py::add_cube``, same vertices and winding, so both
+    packages' ``outside`` scene load the same mesh. Returns the directory."""
+    c = [(x, y, z) for x in (-1, 1) for y in (-1, 1) for z in (-1, 1)]
+    f = [(0, 1, 3), (0, 3, 2), (4, 6, 7), (4, 7, 5), (0, 4, 5), (0, 5, 1),
+         (2, 3, 7), (2, 7, 6), (0, 2, 6), (0, 6, 4), (1, 5, 7), (1, 7, 3)]
+    lines = [f'v {x} {y} {z}' for x, y, z in c]
+    lines += [f'f {a + 1} {b + 1} {d + 1}' for a, b, d in f]
+    with open(f'{directory}/cube.obj', 'w') as fh:
+        fh.write('\n'.join(lines) + '\n')
+    return str(directory)

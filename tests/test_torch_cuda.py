@@ -12,6 +12,7 @@ from _torch_room import build_room, CAMERA
 from cuda_pathtracer_tpu_torch.core.camera import Camera
 from cuda_pathtracer_tpu_torch.models.pathtracer import Pathtracer
 from cuda_pathtracer_tpu_torch.ops import blur, guiding_scatter, kernels
+from cuda_pathtracer_tpu_torch.ops import traverse_packet as tp1
 from cuda_pathtracer_tpu_torch.ops import traverse_packet2 as tp2
 from cuda_pathtracer_tpu_torch.ops.traverse import _primitives_prepass
 from cuda_pathtracer_tpu_torch.scene import builder, scene as scene_mod
@@ -58,6 +59,39 @@ def test_traverse_kernel_matches_plain(dev, room):
     assert torch.equal(gid, want[1])
     assert torch.equal(u[found], want[3][found])
     assert torch.equal(v[found], want[4][found])
+
+
+def _room_rays(arr, dev, n=50000, seed=0):
+    rs = np.random.RandomState(seed)
+    ro = torch.as_tensor(rs.uniform([-2.9, 0.05, -1.9], [2.9, 3.9, 3.9],
+                                    (n, 3)).astype(np.float32), device=dev)
+    rd = torch.nn.functional.normalize(
+        torch.as_tensor(rs.normal(size=(n, 3)).astype(np.float32), device=dev),
+        dim=1)
+    t_max = torch.full((n,), 9999999.0, device=dev)
+    t0, _, _, found0 = _primitives_prepass(arr, ro, rd, t_max)
+    stop = torch.as_tensor(rs.rand(n) < 0.3, device=dev)
+    live = torch.as_tensor(rs.rand(n) < 0.9, device=dev) & ~(stop & found0)
+    return ro, rd, t0, live, stop
+
+
+@pytest.mark.parametrize('cheap', [False, True])
+def test_traverse_packet_kernel_matches_plain(dev, room, cheap):
+    """v1: found equal and t bit-identical; closest-hit ids equal except on
+    exact-t ties between leaves (none expected here: both walk the same
+    order per ray)."""
+    arr, dyn = room
+    ro, rd, t0, live, stop = _room_rays(arr, dev, seed=3)
+    tables = tp1.PacketTables(dyn.packet_inner, dyn.packet_leaf, dyn.depth)
+    before = kernels.LAUNCHES['traverse_packet']
+    t, gid, found = tp1.traverse_split(tables, ro, rd, t0, live, stop, cheap)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES['traverse_packet'] == before + 1
+    pt, pgid, pfound = tp1.traverse_packet_ref(tables, ro, rd, t0, live, stop,
+                                               cheap)
+    assert found.any() and torch.equal(found, pfound)
+    assert torch.equal(t.view(torch.int32), pt.view(torch.int32))
+    assert torch.equal(gid, pgid)
 
 
 def test_guiding_scatter_kernel_matches_plain(dev):

@@ -24,7 +24,7 @@ W, H = 32, 24
 def renders():
     jpt = JPathtracer(build_room(js, add_cube), W, H)
     tpt = TPathtracer(build_room(ts, add_cube), W, H, device='cpu')
-    jcam, tcam = JCamera.create(**CAMERA), TCamera.create(**CAMERA)
+    jcam, tcam = JCamera.create(**CAMERA), TCamera.create(**CAMERA, device='cpu')
     for clear in (True, False, False, False):
         jpt.render(jcam, should_clear=clear)
         tpt.render(tcam, should_clear=clear)

@@ -91,7 +91,7 @@ def test_generate_rays_agree(cam):
     seeds = np.asarray(jrng.get_seed(jnp.asarray(xs), jnp.asarray(ys), 3, W))
     jo, jd, _ = jcam.generate_rays(jcam.Camera.create(**cam), jnp.asarray(xs),
                                    jnp.asarray(ys), jnp.asarray(seeds), W, H)
-    to, td, _ = tcam.generate_rays(tcam.Camera.create(**cam),
+    to, td, _ = tcam.generate_rays(tcam.Camera.create(**cam, device='cpu'),
                                    torch.as_tensor(xs), torch.as_tensor(ys),
                                    _t(seeds), W, H)
     for got, want in ((to, jo), (td, jd)):

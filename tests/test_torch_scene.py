@@ -63,8 +63,9 @@ def test_dynamic_arrays_match(scenes):
     assert tdyn.depth == jscene.wide_depth
     _eq(tdyn.tri_gid, jdyn.world.tri_gid, 'tri_gid')
     _eq(tdyn.tri_inst, jdyn.world.tri_inst, 'tri_inst')
+    _eq(tdyn.world_tris, jdyn.world.tris, 'world_tris')
     for f in DynamicArrays._fields:
-        if f not in ('tri_gid', 'tri_inst', 'depth'):
+        if f not in ('tri_gid', 'tri_inst', 'world_tris', 'depth'):
             _eq(getattr(tdyn, f), getattr(jdyn, f), f)
 
 

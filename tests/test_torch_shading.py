@@ -66,11 +66,12 @@ def inputs():
             radiance, bn)
 
 
-@pytest.mark.parametrize('sample_idx,cache_on,rand_idx', [
-    (0, True, 1), (5, True, 4), (7, False, 9)])
-def test_shade_matches_jax(inputs, sample_idx, cache_on, rand_idx):
+def _shade_both(inputs, sample_idx, cache_on, rand_idx, uv: bool = True):
+    """Flat dicts of the JAX and the port's shade outputs; ``uv=False``
+    hands both a hit without barycentrics (u = v = None)."""
     (jarr, jdyn, tarr, tdyn, xs, ys, ro, rd, active, hit, state, radiance,
      bn) = inputs
+    hit = {k: v for k, v in hit.items() if uv or k not in ('u', 'v')}
     J = jnp.asarray
     T = torch.as_tensor
     jout = jsh.shade(jarr, jdyn, J(ro), J(rd), JHit(**{k: J(v) for k, v in hit.items()}),
@@ -86,22 +87,46 @@ def test_shade_matches_jax(inputs, sample_idx, cache_on, rand_idx):
                      cache_on, tg.RadianceState(T(radiance['cache']),
                                                 T(radiance['total'])),
                      W, T(bn))
-    jflat = dict(jout._asdict(), **{f's.{k}': v for k, v in
-                                    jout.state._asdict().items()})
-    tflat = dict(tout._asdict(), **{f's.{k}': v for k, v in
-                                    tout.state._asdict().items()})
-    del jflat['state'], tflat['state']
     assert tout.alive.any() and tout.shadow_active.any()
     if cache_on:
         assert (tout.cache_stype == jg.SAMPLE_BUCKET).any()
-    for k, want in jflat.items():
-        got = tflat[k].numpy()
-        want = np.asarray(want)
-        assert got.shape == want.shape, k
-        if want.dtype == np.float32:
-            assert np.isfinite(got).all(), k
-            np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-6,
-                                       err_msg=k)
+    flat = []
+    for out in (jout, tout):
+        d = dict(out._asdict(), **{f's.{k}': v for k, v in
+                                   out.state._asdict().items()})
+        del d['state']
+        flat.append({k: np.asarray(v) for k, v in d.items()})
+    return flat
+
+
+def _assert_outputs_close(got, want, rtol, atol):
+    for k, w in want.items():
+        g = got[k]
+        assert g.shape == w.shape, k
+        if w.dtype == np.float32:
+            assert np.isfinite(g).all(), k
+            np.testing.assert_allclose(g, w, rtol=rtol, atol=atol, err_msg=k)
         else:
-            np.testing.assert_array_equal(got.astype(want.dtype), want,
-                                          err_msg=k)
+            np.testing.assert_array_equal(g.astype(w.dtype), w, err_msg=k)
+
+
+@pytest.mark.parametrize('sample_idx,cache_on,rand_idx', [
+    (0, True, 1), (5, True, 4), (7, False, 9)])
+def test_shade_matches_jax(inputs, sample_idx, cache_on, rand_idx):
+    jflat, tflat = _shade_both(inputs, sample_idx, cache_on, rand_idx)
+    _assert_outputs_close(tflat, jflat, rtol=2e-5, atol=2e-6)
+
+
+@pytest.mark.parametrize('sample_idx,cache_on,rand_idx', [
+    (0, True, 1), (7, False, 9)])
+def test_shade_reintersects_without_uv(inputs, sample_idx, cache_on,
+                                       rand_idx):
+    """A hit without barycentrics (the v1 traversal's): the port
+    re-intersects the winning triangle from ``world_tris``, the JAX package
+    from ``tri_meta``. Held to the JAX shade without uv and to the port's
+    own shade with the traversal's uv, within 1e-5."""
+    jflat, tflat = _shade_both(inputs, sample_idx, cache_on, rand_idx,
+                               uv=False)
+    _assert_outputs_close(tflat, jflat, rtol=1e-5, atol=1e-5)
+    _, with_uv = _shade_both(inputs, sample_idx, cache_on, rand_idx)
+    _assert_outputs_close(tflat, with_uv, rtol=1e-5, atol=1e-5)
