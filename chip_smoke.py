@@ -7,7 +7,12 @@ csrc`` and drives the port's two paths once at full size:
 
 1. the converge path: the sibenik scene at 1920x1080, one clear frame, 4
    converge samples (32 bounces, NEE, guiding training) and the blurred
-   display image, on the v2 merged-table traversal;
+   display image, on the v2 merged-table traversal, in the engine's default
+   schedule: 5 bands of 216 rows in tile lane order, each band's bounces
+   from 3 on narrowed to the live lanes in buffers of 51,840 (level 1) and
+   12,960 lanes (level 2). Every converge sample must take both levels, and
+   ``traverse`` must run on waves of both widths. Then two converge samples
+   are timed with the frame as one band (buffers of 259,200 and 64,800);
 2. the CLI's animated path: ``python -m cuda_pathtracer_tpu_torch --scene
    outside --width 1920 --height 1080 --time 5 --spp 4 --blur``, run in this
    process with ``PACKET_V1`` on (the split-table v1 traversal, shading's
@@ -17,18 +22,20 @@ csrc`` and drives the port's two paths once at full size:
 Each path's launch counts are set to 0 just before it and read just after:
 every kernel of a path must have launched on it, and no plain PyTorch version
 may have run on the card. Then each kernel is held against its plain version
-on the main path's own inputs: v2 traversal on the primary, shadow and
-first-bounce waves of sibenik's first converge sample (found and t
-bit-identical), the v1 traversal on the same waves (against its plain
-version found and t bit-identical; against v2 found equal, and t equal but
-on exact ties between two triangles), the guiding scatter on that sample's
-updates (rtol 1e-5), the blur on the final 1920x1080 accumulators (rtol
-1e-6). The refitted outside tables are held to a forced full rebuild on the
-card (atol 2e-4, NaN slots equal), and a small room renders alike on the card
-and on the CPU. Kernel and plain times come from CUDA events; each kernel's
-bound is the larger of its bytes over 3.35 TB/s and its FP32 operations over
-67 TFLOP/s, counted from this run's inputs (for the traversals, the node and
-leaf visits of the plain walks).
+on the main path's own inputs: v2 traversal on the primary, shadow, bounce-1
+and first level-1 tail waves of the first band of sibenik's first converge
+sample (found and t bit-identical), the v1 traversal on the same waves
+(against its plain version found and t bit-identical; against v2 found
+equal, and t equal but on exact ties between two triangles), the guiding
+scatter on that band's updates (rtol 1e-5), the blur on the final 1920x1080
+accumulators in pixel order (rtol 1e-6). The refitted outside tables are
+held to a forced full rebuild on the card (atol 2e-4, NaN slots equal), and
+two small rooms render alike on the card and on the CPU: 64x48 below the
+tail gate, and 64x64 in 2 bands of 2,048 lanes with the gate lowered to
+2,048 (equal ``rand_idx`` after every frame). Kernel and plain times come
+from CUDA events; each kernel's bound is the larger of its bytes over 3.35
+TB/s and its FP32 operations over 67 TFLOP/s, counted from this run's inputs
+(for the traversals, the node and leaf visits of the plain walks).
 
 Prints the card's name and power limit, the build time, per-phase lines,
 then one JSON line of per-kernel results, the card line, and as its last line
@@ -112,22 +119,23 @@ def bound(n_bytes: float, n_ops: float):
 
 class Recorder:
     """Wraps a module attribute; keeps clones of the arguments of the calls
-    numbered in ``keep`` (0-based), and with ``returns`` the return value of
-    every call, and otherwise passes straight through."""
+    that ``pick(args, kw)`` names (the first call under each name), and with
+    ``returns`` the return value of every call, and otherwise passes straight
+    through."""
 
-    def __init__(self, module, name: str, keep=(), returns: bool = False):
-        self.module, self.name, self.keep = module, name, set(keep)
+    def __init__(self, module, name: str, pick=None, returns: bool = False):
+        self.module, self.name, self.pick = module, name, pick
         self.returns = returns
         self.orig = getattr(module, name)
-        self.calls, self.saved, self.returned = 0, {}, []
+        self.saved, self.returned = {}, []
 
     def __enter__(self):
         def wrapped(*args, **kw):
-            if self.calls in self.keep:
-                self.saved[self.calls] = (
+            key = self.pick(args, kw) if self.pick else None
+            if key is not None and key not in self.saved:
+                self.saved[key] = (
                     tuple(a.clone() if hasattr(a, 'clone') else a for a in args),
                     dict(kw))
-            self.calls += 1
             out = self.orig(*args, **kw)
             if self.returns:
                 self.returned.append(out)
@@ -137,6 +145,16 @@ class Recorder:
 
     def __exit__(self, *exc):
         setattr(self.module, self.name, self.orig)
+
+
+@contextlib.contextmanager
+def patched(obj, name: str, value):
+    old = getattr(obj, name)
+    setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        setattr(obj, name, old)
 
 
 def traversal_work(n_rays: int, n_out: int, stats: dict, row_bytes: int = 512):
@@ -183,7 +201,10 @@ def main() -> int:
     from cuda_pathtracer_tpu_torch.accel import native
     from cuda_pathtracer_tpu_torch.core.camera import Camera
     from cuda_pathtracer_tpu_torch.models import guiding as guiding_mod
-    from cuda_pathtracer_tpu_torch.models.pathtracer import Pathtracer
+    from cuda_pathtracer_tpu_torch.constants import MAX_RAY_DEPTH
+    from cuda_pathtracer_tpu_torch.models import pathtracer as ptm
+    from cuda_pathtracer_tpu_torch.models.pathtracer import (Pathtracer,
+                                                             band_geometry)
     from cuda_pathtracer_tpu_torch.ops import blur as blur_mod
     from cuda_pathtracer_tpu_torch.ops import dispatch as dispatch_mod
     from cuda_pathtracer_tpu_torch.ops import guiding_scatter as gs_mod
@@ -191,6 +212,7 @@ def main() -> int:
     from cuda_pathtracer_tpu_torch.ops import traverse_packet as tp1
     from cuda_pathtracer_tpu_torch.ops import traverse_packet2 as tp2
     from cuda_pathtracer_tpu_torch.scene import builder
+    from cuda_pathtracer_tpu_torch.utils.frame_profile import ScheduleTap
 
     card = card_line()
     log(f'card: {card} | torch {torch.__version__} cuda {torch.version.cuda}'
@@ -217,7 +239,7 @@ def main() -> int:
         for line in native.build_log().splitlines()[-8:]:
             log('  g++: ' + line)
 
-    # ---- path 1: sibenik converge at full size (v2) ----
+    # ---- path 1: sibenik converge at full size (v2), default bands ----
     t = time.perf_counter()
     scene = builder.get_scene('sibenik')
     pt = Pathtracer(scene, WIDTH, HEIGHT, device='cuda')
@@ -227,37 +249,71 @@ def main() -> int:
         f'{pt.dyn.packet_inner.shape[0]} + {pt.dyn.packet_leaf.shape[0]} rows, '
         f'depth {pt.dyn.depth}; host build + upload '
         f'{time.perf_counter() - t:.2f} s')
+    levels = ptm.tail_levels(WIDTH * pt.band_h, MAX_RAY_DEPTH)
+    pt_bands = pt.bands
+    log(f'schedule: {pt.bands} bands of {pt.band_h} rows, tile order '
+        f'{pt.tile_order}, tail levels (start, end, lanes) {levels}')
+    if (pt.bands, pt.band_h, pt.tile_order) != (5, 216, True):
+        failures.append(f'sibenik: {pt.bands} bands of {pt.band_h} rows, '
+                        f'tile order {pt.tile_order}; want 5 of 216, tiled')
     cam = Camera.create([0.0, 5.0, -16.0], [0.0, 0.0, 1.0], 1.5, 12.0, 0.0,
                         device='cuda')
 
+    # the traversal waves held against the plain versions below: the first
+    # band of the first converge sample, its first three trace calls and its
+    # first level-1 tail wave
+    phase = {'sample': None}
+    wave_sizes = set()
+    band_calls = []
+
+    def pick_wave(args, kw):
+        n = args[1].shape[0]
+        wave_sizes.add(n)
+        if phase['sample'] != 1 or sched.bands[-1]['band'] != 0:
+            return None
+        band_calls.append(n)
+        if len(band_calls) <= 3:
+            return ('primary', 'shadow', 'bounce-1')[len(band_calls) - 1]
+        return 'tail-1' if n == levels[0][2] else None
+
     sample_ms, sample_rays, per_sample = [], [], []
     kernels.reset_counts()
-    # the clear frame traces once (bounce cap 1); the first converge
-    # sample's primary, shadow and bounce-1 waves are trace calls 2, 3, 4
-    with Recorder(dispatch_mod, 'traverse_merged', keep=(2, 3, 4)) as trav, \
-            Recorder(guiding_mod, 'segment_sum_pairs', keep=(0,)) as scat:
+    with ScheduleTap() as sched, \
+            Recorder(dispatch_mod, 'traverse_merged', pick=pick_wave) as trav, \
+            Recorder(guiding_mod, 'segment_sum_pairs',
+                     pick=lambda a, k: 0) as scat:
         for i in range(1 + CONVERGE_SAMPLES):
+            phase['sample'] = i
             rays0 = int(pt.rays_traced)
             before = dict(kernels.LAUNCHES)
+            first_band = len(sched.bands)
             ms, _ = cuda_ms(lambda: pt.render(cam, should_clear=(i == 0)))
             rays = int(pt.rays_traced) - rays0
             per_sample.append({k: kernels.LAUNCHES[k] - before[k]
                                for k in kernels.NAMES})
+            bands = sched.bands[first_band:]
+            rounds = {s: [b['rounds'].get(s, 0) for b in bands]
+                      for s, _, _ in levels}
             log(f'sample {i} ({"clear" if i == 0 else "converge"}): '
                 f'{ms:.1f} ms, {rays} rays, {rays / ms / 1e3:.2f} Mrays/s, '
-                f'launches {per_sample[-1]}')
+                f'launches {per_sample[-1]}; tail rounds per band '
+                + ', '.join(f'level@{s}: {r}' for s, r in rounds.items()))
             if i:
                 sample_ms.append(ms)
                 sample_rays.append(rays)
+                if len(bands) != pt.bands or any(sum(r) < 1
+                                                 for r in rounds.values()):
+                    failures.append(f'sibenik converge sample {i} did not '
+                                    f'take both tail levels: {rounds}')
         blur_ms, img = cuda_ms(lambda: pt.image(blur=True))
     torch.cuda.synchronize()
     sib_launches = dict(kernels.LAUNCHES)
     plain_on_cuda = dict(kernels.PLAIN_ON_CUDA)
     log(f'launches on the sibenik path: {sib_launches}; plain versions on '
-        f'CUDA: {plain_on_cuda}')
+        f'CUDA: {plain_on_cuda}; traverse wave widths {sorted(wave_sizes)}')
     energy, has_nan, has_neg = pt.energy()
     mrays = sum(sample_rays) / sum(sample_ms) / 1e3
-    log(f'sibenik converge: {CONVERGE_SAMPLES} samples, '
+    log(f'sibenik converge, {pt.bands} bands: {CONVERGE_SAMPLES} samples, '
         f'{sum(sample_ms) / len(sample_ms):.1f} ms/sample, {mrays:.2f} Mrays/s '
         f'on {card}; image(blur=True) {blur_ms:.2f} ms; energy={energy:.4f} '
         f'nan={has_nan} neg={has_neg}')
@@ -267,6 +323,9 @@ def main() -> int:
         failures.append(f'sibenik nan={has_nan} neg={has_neg}')
     if tuple(img.shape) != (HEIGHT, WIDTH, 3) or not bool(torch.isfinite(img).all()):
         failures.append('blurred image is not finite [1080, 1920, 3]')
+    for _, _, lanes in levels:
+        if lanes not in wave_sizes:
+            failures.append(f'traverse never ran on a {lanes}-lane tail wave')
     for name in SIBENIK_KERNELS:
         if sib_launches[name] <= 0:
             failures.append(f'{name}: no launch on the sibenik path')
@@ -284,8 +343,11 @@ def main() -> int:
            for k in ('traverse', 'traverse_packet')}
     tables = tp1.PacketTables(pt.dyn.packet_inner, pt.dyn.packet_leaf,
                               pt.dyn.depth)
-    for call, wave in zip((2, 3, 4), ('primary', 'shadow', 'bounce-1')):
-        (table, ro, rd, t0, live, stop), kw = trav.saved[call]
+    for wave in ('primary', 'shadow', 'bounce-1', 'tail-1'):
+        if wave not in trav.saved:
+            failures.append(f'traverse: no {wave} wave captured')
+            continue
+        (table, ro, rd, t0, live, stop), kw = trav.saved[wave]
         want_uv = kw.get('want_uv', False)
         any_hit = bool(stop.all())
         ms, (t, gid, found, u, v) = cuda_ms(
@@ -401,9 +463,10 @@ def main() -> int:
 
     # ---- kernel vs plain: blur on the final accumulators ----
     n = float(pt.sample_idx)
-    ms, kout = cuda_ms(lambda: blur_mod.blur_luminance(pt.lum, pt.alb, n, WIDTH,
+    lum_px, alb_px = pt.accumulators_pixel_order()
+    ms, kout = cuda_ms(lambda: blur_mod.blur_luminance(lum_px, alb_px, n, WIDTH,
                                                        HEIGHT), reps=5, warmup=1)
-    pms, pout = cuda_ms(lambda: blur_mod.blur_luminance_ref(pt.lum, pt.alb, n,
+    pms, pout = cuda_ms(lambda: blur_mod.blur_luminance_ref(lum_px, alb_px, n,
                                                             WIDTH, HEIGHT),
                         reps=5, warmup=1)
     err = float((kout - pout).abs().max())
@@ -421,7 +484,36 @@ def main() -> int:
         failures.append('blur: kernel disagrees with plain')
     results['blur'] = dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b[0],
                            bound_by=b[1], library_ms=None)
-    del pt, scene, trav, scat
+    del lum_px, alb_px, trav, scat
+
+    # ---- the same converge path with the frame as one band ----
+    lane_cap = Pathtracer.MAX_LANES_PER_DISPATCH
+    one_ms, one_rays, wave_sizes1 = [], [], set()
+    with patched(Pathtracer, 'MAX_LANES_PER_DISPATCH', WIDTH * HEIGHT), \
+            ScheduleTap() as sched1, \
+            Recorder(dispatch_mod, 'traverse_merged',
+                     pick=lambda a, k: wave_sizes1.add(a[1].shape[0])):
+        pt._set_bands(band_geometry(WIDTH, HEIGHT, 1,
+                                    Pathtracer.MAX_LANES_PER_DISPATCH)[0])
+        levels1 = ptm.tail_levels(WIDTH * pt.band_h, MAX_RAY_DEPTH)
+        pt.render(cam, should_clear=True)
+        for _ in range(2):
+            rays0 = int(pt.rays_traced)
+            ms, _ = cuda_ms(lambda: pt.render(cam))
+            one_ms.append(ms)
+            one_rays.append(int(pt.rays_traced) - rays0)
+    one_rounds = {s: sched1.rounds(s) for s, _, _ in levels1}
+    log(f'sibenik converge, {pt.bands} band of {pt.band_h} rows (lane cap '
+        f'raised from {lane_cap} to {WIDTH * HEIGHT}): tail levels {levels1}, '
+        f'rounds over 2 samples {one_rounds}, traverse wave widths '
+        f'{sorted(wave_sizes1)}; 2 samples {one_ms[0]:.1f} / {one_ms[1]:.1f} '
+        f'ms, {sum(one_ms) / 2:.1f} ms/sample, '
+        f'{sum(one_rays) / sum(one_ms) / 1e3:.2f} Mrays/s on {card} (default '
+        f'{pt_bands} bands: {sum(sample_ms) / len(sample_ms):.1f} ms/sample, '
+        f'{mrays:.2f} Mrays/s)')
+    if any(r < 1 for r in one_rounds.values()):
+        failures.append(f'one band: a tail level never ran {one_rounds}')
+    del pt, scene
     torch.cuda.empty_cache()
 
     # ---- path 2: the CLI on the animated outside scene (v1, then v2) ----
@@ -433,7 +525,8 @@ def main() -> int:
                                    '--state', os.path.join(tmp, f'{tag}.txt')]
             kernels.reset_counts()
             t = time.perf_counter()
-            rc, err_text, app, out_scene = run_cli(cli_main, args, v1)
+            with ScheduleTap() as sched_o:
+                rc, err_text, app, out_scene = run_cli(cli_main, args, v1)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t
             got = dict(kernels.LAUNCHES)
@@ -441,7 +534,10 @@ def main() -> int:
             m = re.search(r'^energy (\S+) nan=(\w+) neg=(\w+)$', err_text, re.M)
             log(f'outside {tag}: rc={rc}, {wall:.2f} s wall, {app.sample_idx} '
                 f'samples, refits {out_scene.refits}; launches {got}; plain '
-                f'versions on CUDA: {plain}')
+                f'versions on CUDA: {plain}; {app.bands} bands of '
+                f'{app.band_h} rows, level-1 tail rounds per band call '
+                f'{[b["rounds"].get(ptm.TAIL_START, 0) for b in sched_o.bands]}'
+                f' ({sched_o.rounds(ptm.TAIL_START)} in all)')
             if rc != 0 or m is None:
                 failures.append(f'outside {tag}: CLI failed (rc={rc})')
                 continue
@@ -490,7 +586,7 @@ def main() -> int:
                     failures.append(f'refit world_tris: max|d|={d}')
                 log(f'refit on the card vs full rebuild: max|d|={worst} '
                     f'(atol 2e-4, NaN slots equal)')
-            renders[tag] = app.lum.clone()
+            renders[tag] = app.accumulators_pixel_order()[0].clone()
             del app, out_scene
         if len(renders) == 2:
             close = torch.isclose(renders['v1'][:, :3], renders['v2'][:, :3],
@@ -502,25 +598,51 @@ def main() -> int:
                 failures.append(f'outside: only {share:.6f} of pixels agree '
                                 f'between v1 and v2')
 
-    # ---- end to end on a small input: the room on the card vs the CPU ----
+    # ---- end to end on a small input: the room on the card vs the CPU,
+    # below the tail gate and in the full-size schedule at a small size ----
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                     'tests'))
     from _torch_room import build_room, CAMERA
     from cuda_pathtracer_tpu_torch.scene import scene as scene_mod
-    accs = []
-    for device in ('cuda', 'cpu'):
-        small = Pathtracer(build_room(scene_mod, builder.add_cube), 64, 48,
+
+    def room(device, w, h, frames):
+        small = Pathtracer(build_room(scene_mod, builder.add_cube), w, h,
                            device=device)
         c = Camera.create(**CAMERA, device=device)
-        for clear in (True, False, False, False):
+        ridx = []
+        for clear in frames:
             small.render(c, should_clear=clear)
-        accs.append(small.lum.cpu())
-    close = torch.isclose(accs[0][:, :3], accs[1][:, :3], rtol=1e-3,
-                          atol=1e-5).all(dim=1).float().mean().item()
+            ridx.append(small.rand_idx)
+        return small.accumulators_pixel_order()[0].cpu(), ridx, small.bands
+
+    def agree(a, b):
+        return torch.isclose(a[:, :3], b[:, :3], rtol=1e-3,
+                             atol=1e-5).all(dim=1).float().mean().item()
+
+    (lc, _, _), (lh, _, _) = (room(d, 64, 48, (True, False, False, False))
+                              for d in ('cuda', 'cpu'))
+    close = agree(lc, lh)
     log(f'room 64x48, clear + 3 converge samples: {close:.4f} of pixels agree '
         f'between the CUDA path and the CPU path')
     if close < 0.99:
         failures.append(f'room render: only {close:.4f} of pixels agree')
+    with patched(ptm, 'TAIL_MIN_LANES', 2048), \
+            patched(Pathtracer, 'MAX_LANES_PER_DISPATCH', 2048):
+        runs = {}
+        for d in ('cuda', 'cpu'):
+            with ScheduleTap() as sched_r:
+                runs[d] = room(d, 64, 64, (True, False, False))
+            runs[d] += (sched_r.rounds(ptm.TAIL_START),
+                        sched_r.rounds(ptm.TAIL2_START))
+    close = agree(runs['cuda'][0], runs['cpu'][0])
+    log(f'room 64x64 in {runs["cuda"][2]} bands of 2048 lanes, tail gate 2048, '
+        f'clear + 2 converge samples: rand_idx per frame {runs["cuda"][1]} '
+        f'(card) vs {runs["cpu"][1]} (CPU), tail rounds (level 1, level 2) '
+        f'{runs["cuda"][3:]} vs {runs["cpu"][3:]}; {close:.4f} of pixels agree')
+    if runs['cuda'][1] != runs['cpu'][1] or close < 0.99 \
+            or runs['cuda'][3] <= runs['cuda'][2] * 2:
+        failures.append('tail room: the card and the CPU disagree, or level 1 '
+                        'took one round per band')
 
     loaded = sorted(m for m in sys.modules
                     if (m in ('jax', 'cuda_pathtracer_tpu')

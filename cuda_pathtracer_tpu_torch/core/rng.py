@@ -63,22 +63,26 @@ def get_seed(x, y, rand_idx, width: int):
 
 class RandState(NamedTuple):
     """Per-lane RNG state (src/types.h:679-687). ``seed`` and ``bn_idx`` are
-    u32 values in int64 tensors; ``sample_idx`` is the frame's sample index
-    (a Python int: the whole wavefront shares it)."""
+    u32 values in int64 tensors; ``sample_idx`` is the sample index, a Python
+    int when the whole wavefront shares it, or an i64 tensor per lane when a
+    dispatch batches several samples."""
     seed: torch.Tensor       # i64[...] in [0, 2^32)
     bn_sample: torch.Tensor  # f32[...] blue-noise texture sample
     bn_idx: torch.Tensor     # i64[...] quasirandom draw counter
-    sample_idx: int
+    sample_idx: int | torch.Tensor
 
 
 def rand(state: RandState):
     """One draw per lane with the blue-noise gate (src/kernels.h:20-29):
     sampleIdx < 1 -> quasirandom, else xorshift."""
     ur, new_seed = rand_uniform(state.seed)
-    if state.sample_idx < 1:
+    per_lane = isinstance(state.sample_idx, torch.Tensor)
+    if per_lane or state.sample_idx < 1:
         # jnp.mod equals fmod here: both operands are non-negative
         val = torch.fmod(state.bn_sample + PI * state.bn_idx.to(torch.float32),
                          1.0)
+        if per_lane:
+            val = torch.where(state.sample_idx < 1, val, ur)
     else:
         val = ur
     return val, RandState(new_seed, state.bn_sample,

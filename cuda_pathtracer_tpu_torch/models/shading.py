@@ -111,13 +111,14 @@ def _refract(rd, normal, pos, ior, absorption, inside, t):
 
 
 def shade(scene, dyn, ro, rd, hit: Hit, state: TraceState, ray_active,
-          xs, ys, rand_idx: int, sample_idx: int, nee: bool, cache_on: bool,
+          xs, ys, rand_idx, sample_idx, nee: bool, cache_on: bool,
           radiance: RadianceState, width: int, bn_sample) -> ShadeOutput:
     """One wavefront shade pass. ``ray_active`` marks lanes that carried a
     ray this bounce; ``hit`` carries the traversal's barycentrics
     (trace(want_uv=True) on v2) or ``u = v = None`` (v1), and then textured
     hits re-intersect their triangle; ``bn_sample`` is the per-lane
-    blue-noise value."""
+    blue-noise value. ``rand_idx`` and ``sample_idx`` are ints, or i64
+    tensors per lane when a dispatch batches several samples."""
     B = ro.shape[0]
     dev = ro.device
     zero3 = torch.zeros((), dtype=torch.float32, device=dev)
@@ -137,8 +138,7 @@ def shade(scene, dyn, ro, rd, hit: Hit, state: TraceState, ray_active,
     rand_state = _rng.RandState(
         seed=_rng.get_seed(xs, ys, rand_idx, width),
         bn_sample=bn_sample,
-        bn_idx=torch.full((B,), rand_idx & _rng.M32, dtype=torch.int64,
-                          device=dev),
+        bn_idx=_rng._u32(rand_idx, dev).expand(B),
         sample_idx=sample_idx)
 
     # ---- hit decode: world triangle -> model triangle and instance ----

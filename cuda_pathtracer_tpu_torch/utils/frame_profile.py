@@ -1,83 +1,243 @@
-"""Where one frame's time goes on the card, from ``torch.profiler``.
+"""Where one frame's time goes on the card, per band and tail level.
 
-    python -m cuda_pathtracer_tpu_torch.utils.frame_profile [--v1]
+    python -m cuda_pathtracer_tpu_torch.utils.frame_profile [--v1] [--one-band]
 
-Profiles one clearing frame of the CLI's animated path (the ``outside``
-scene at 1920x1080, ``Scene.update`` at t = 5 so the frame refits the moved
-cubes, 5 samples of at most 5 bounces, NEE) and one converge sample of the
-sibenik path (1920x1080, 32 bounces), each after a warm-up of the same work.
-``--v1`` traces with the split-table kernel. Prints, per frame, the wall time
-around synchronized work, the device-busy time (the union of the CUDA kernel
-intervals), the device's idle share, the kernel launches, and the kernels
-that took the most device time. Needs a CUDA device.
+Profiles, with ``torch.profiler``, one clearing frame of the CLI's animated
+path (the ``outside`` scene at 1920x1080, ``Scene.update`` at t = 5 so the
+frame refits the moved cubes, 5 samples of at most 5 bounces, NEE) and one
+converge sample of the sibenik path (1920x1080, 32 bounces), each after a
+warm-up of the same work. ``--v1`` traces with the split-table kernel;
+``--one-band`` renders each frame as one band (the lane cap raised to the
+frame) instead of the engine's default bands.
+
+Prints, per frame, the wall time around synchronized work, the device-busy
+time (the union of the CUDA kernel intervals), the device's idle share, the
+kernel launches and the kernels that took the most device time; then one
+line per band and part of the schedule (the full-width bounces before the
+tail, each tail level): bounces run, rounds, the lane width of the bounces,
+the live lanes per bounce, the CUDA kernels, wall and busy time and the idle
+share. The profiled run synchronizes at each band and level boundary so that
+each part's kernels finish inside it. Needs a CUDA device.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import sys
 import time
+from collections import defaultdict
 
 import torch
-from torch.profiler import ProfilerActivity, profile
+from torch.profiler import ProfilerActivity, profile, record_function
 
 from ..core.camera import Camera
-from ..models.pathtracer import Pathtracer
+from ..models import pathtracer as ptm
 from ..ops import dispatch, kernels
 from ..scene.builder import get_scene
 
 WIDTH, HEIGHT = 1920, 1080
+MAIN = 0   # the part key of the full-width bounces before the tail
 
 
-def _busy_ms(events) -> tuple[float, int]:
-    """Union of the CUDA kernel intervals (ms) and the kernel count."""
-    spans = sorted((e.time_range.start, e.time_range.end) for e in events
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
-    busy, end = 0.0, float('-inf')
+class ScheduleTap:
+    """While active, records the engine's schedule: one entry per
+    render_sample call (a band of one dispatch) with its band index, the
+    rounds of each tail level and, per part (``MAIN`` or a level's start
+    bounce), the lane width of each bounce. ``live=True`` also counts the
+    live lanes of each bounce (one more sync per bounce); ``mark=True``
+    synchronizes around each band and level and labels them for the
+    profiler as ``cpt/<call>/<part>``."""
+
+    def __init__(self, live: bool = False, mark: bool = False):
+        self.live, self.mark = live, mark
+        self.bands = []
+        self._part = MAIN
+
+    @contextlib.contextmanager
+    def _span(self, label: str):
+        if not self.mark:
+            yield
+            return
+        torch.cuda.synchronize()
+        with record_function(label):
+            yield
+            torch.cuda.synchronize()
+
+    def __enter__(self):
+        tap = self
+        self._orig = {n: getattr(ptm, n) for n in
+                      ('render_sample', '_tail_level', '_tail_round',
+                       '_bounce_body')}
+        orig = self._orig
+
+        def render_sample(*args, **kw):
+            tap.bands.append(dict(band=kw.get('row_offset', 0) // kw['height'],
+                                  rounds={}, widths=defaultdict(list),
+                                  lives=defaultdict(list)))
+            tap._part = MAIN
+            with tap._span(f'cpt/{len(tap.bands) - 1}/band'):
+                return orig['render_sample'](*args, **kw)
+
+        def tail_level(*args, **kw):
+            tap._part = args[5]
+            try:
+                with tap._span(f'cpt/{len(tap.bands) - 1}/{args[5]}'):
+                    return orig['_tail_level'](*args, **kw)
+            finally:
+                tap._part = MAIN
+
+        def tail_round(*args, **kw):
+            r = tap.bands[-1]['rounds']
+            r[args[5]] = r.get(args[5], 0) + 1
+            return orig['_tail_round'](*args, **kw)
+
+        def bounce_body(scene, dyn, radiance, c, ln, **kw):
+            b = tap.bands[-1]
+            b['widths'][tap._part].append(c.alive.shape[0])
+            if tap.live:
+                b['lives'][tap._part].append(int(c.alive.sum()))
+            return orig['_bounce_body'](scene, dyn, radiance, c, ln, **kw)
+
+        for name, fn in (('render_sample', render_sample),
+                         ('_tail_level', tail_level),
+                         ('_tail_round', tail_round),
+                         ('_bounce_body', bounce_body)):
+            setattr(ptm, name, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self._orig.items():
+            setattr(ptm, name, fn)
+
+    def rounds(self, part: int) -> int:
+        return sum(b['rounds'].get(part, 0) for b in self.bands)
+
+
+def _is_kernel(e) -> bool:
+    """A CUDA kernel or copy event: the profiler also mirrors the
+    ``cpt/...`` labels onto the device timeline, and those are not work."""
+    return (e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.name.startswith('cpt/'))
+
+
+def _cuda_spans(events):
+    return sorted((e.time_range.start, e.time_range.end) for e in events
+                  if _is_kernel(e))
+
+
+def _busy(spans, lo=float('-inf'), hi=float('inf')) -> tuple[float, int]:
+    """Union (us) of the kernel intervals that start in [lo, hi), clipped to
+    it, and their count."""
+    busy, end, n = 0.0, float('-inf'), 0
     for s, e in spans:
+        if not lo <= s < hi:
+            continue
+        n += 1
+        e = min(e, hi)
         if s > end:
             busy += e - s
             end = e
         elif e > end:
             busy += e - end
             end = e
-    return busy / 1e3, len(spans)
+    return busy, n
+
+
+def _parts(tap: ScheduleTap, events, spans):
+    """Per (band, part): bounces, rounds, widths, live lanes, kernels, wall
+    and busy us, summed over the dispatches of the profiled work."""
+    ranges = {}
+    for e in events:
+        if (e.name.startswith('cpt/')
+                and e.device_type == torch.autograd.DeviceType.CPU):
+            _, call, part = e.name.split('/')
+            ranges[(int(call), part)] = (e.time_range.start, e.time_range.end)
+    rows = defaultdict(lambda: dict(bounces=0, rounds=0, widths=set(),
+                                    lives=[], kernels=0, wall=0.0, busy=0.0))
+    for i, b in enumerate(tap.bands):
+        lo, hi = ranges.get((i, 'band'), (0.0, 0.0))
+        inner = [ranges[(i, str(p))] for p in b['widths'] if p != MAIN
+                 and (i, str(p)) in ranges]
+        for part in sorted(b['widths']):
+            row = rows[(b['band'], part)]
+            row['bounces'] += len(b['widths'][part])
+            row['rounds'] += b['rounds'].get(part, 0)
+            row['widths'] |= set(b['widths'][part])
+            row['lives'] += b['lives'][part]
+            if part == MAIN:
+                # the band minus its tail levels: bounces, guiding, film
+                busy, n = _busy(spans, lo, hi)
+                wall = hi - lo
+                for s, e in inner:
+                    db, dn = _busy(spans, s, e)
+                    busy, n, wall = busy - db, n - dn, wall - (e - s)
+            else:
+                s, e = ranges.get((i, str(part)), (0.0, 0.0))
+                busy, n = _busy(spans, s, e)
+                wall = e - s
+            row['kernels'] += n
+            row['wall'] += wall
+            row['busy'] += busy
+    return rows
 
 
 def _report(name: str, work, top: int = 8):
     work()                      # warm-up
     torch.cuda.synchronize()
     kernels.reset_counts()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with ScheduleTap(live=True, mark=True) as tap, \
+            profile(activities=[ProfilerActivity.CPU,
+                                ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
         work()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t) * 1e3
-    busy, n = _busy_ms(prof.events())
+    events = prof.events()
+    spans = _cuda_spans(events)
+    busy, n = _busy(spans)
+    busy /= 1e3
     print(f'{name}: wall {wall:.1f} ms, device busy {busy:.1f} ms, idle share '
           f'{1 - busy / wall:.3f}, {n} CUDA kernels; launches of the port\'s '
-          f'kernels {dict(kernels.LAUNCHES)}')
+          f'kernels {dict(kernels.LAUNCHES)}; {len(tap.bands)} band calls')
     rows = [r for r in prof.key_averages()
-            if getattr(r, 'device_time_total', 0) > 0]
+            if getattr(r, 'device_time_total', 0) > 0
+            and not r.key.startswith('cpt/')]
     rows.sort(key=lambda r: r.device_time_total, reverse=True)
     for r in rows[:top]:
         print(f'  {r.device_time_total / 1e3:9.2f} ms {r.count:6d} x  '
               f'{r.key[:90]}')
+    print('  band part      bounces rounds widths        live lanes per bounce '
+          '(mean)  kernels  wall ms  busy ms  idle')
+    for (band, part), r in sorted(_parts(tap, events, spans).items()):
+        label = 'full-width' if part == MAIN else f'level@{part}'
+        live = sum(r['lives']) / max(len(r['lives']), 1)
+        idle = 1 - r['busy'] / r['wall'] if r['wall'] > 0 else float('nan')
+        print(f'  {band:4d} {label:10s} {r["bounces"]:7d} {r["rounds"]:6d} '
+              f'{",".join(map(str, sorted(r["widths"]))):13s} {live:12.1f}'
+              f'{"":17s} {r["kernels"]:7d} {r["wall"] / 1e3:8.1f} '
+              f'{r["busy"] / 1e3:8.1f} {idle:5.3f}')
 
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument('--v1', action='store_true',
                    help='trace with the split-table v1 kernel')
+    p.add_argument('--one-band', action='store_true',
+                   help='render each frame as one band')
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print('frame_profile: needs a CUDA device', file=sys.stderr)
         return 1
     dispatch.PACKET_V1 = args.v1
-    print(f'{torch.cuda.get_device_name(0)}; PACKET_V1={args.v1}')
+    if args.one_band:
+        ptm.Pathtracer.MAX_LANES_PER_DISPATCH = WIDTH * HEIGHT
+    print(f'{torch.cuda.get_device_name(0)}; PACKET_V1={args.v1}; lane cap '
+          f'{ptm.Pathtracer.MAX_LANES_PER_DISPATCH}')
 
     scene = get_scene('outside')
-    pt = Pathtracer(scene, WIDTH, HEIGHT, device='cuda')
+    pt = ptm.Pathtracer(scene, WIDTH, HEIGHT, device='cuda')
     cam = Camera.create([0.0, 4.0, -17.0], [0.0, -0.2, 1.0], 1.5, 12.0, 0.0)
+    print(f'{pt.bands} bands of {pt.band_h} rows, tile order {pt.tile_order}')
 
     def outside_frame():
         scene.update(None, 5.0)
@@ -86,7 +246,7 @@ def main(argv=None) -> int:
             outside_frame)
 
     scene = get_scene('sibenik')
-    pt = Pathtracer(scene, WIDTH, HEIGHT, device='cuda')
+    pt = ptm.Pathtracer(scene, WIDTH, HEIGHT, device='cuda')
     cam = Camera.create([0.0, 5.0, -16.0], [0.0, 0.0, 1.0], 1.5, 12.0, 0.0)
     pt.render(cam, should_clear=True)
     _report('sibenik converge sample', lambda: pt.render(cam))

@@ -10,6 +10,7 @@ import torch
 
 from _torch_room import build_room, CAMERA
 from cuda_pathtracer_tpu_torch.core.camera import Camera
+from cuda_pathtracer_tpu_torch.models import pathtracer as ptm
 from cuda_pathtracer_tpu_torch.models.pathtracer import Pathtracer
 from cuda_pathtracer_tpu_torch.ops import blur, guiding_scatter, kernels
 from cuda_pathtracer_tpu_torch.ops import traverse_packet as tp1
@@ -127,5 +128,30 @@ def test_room_render_matches_cpu(dev):
             pt.render(cam, should_clear=clear)
         accs.append(pt.lum.cpu())
     close = torch.isclose(accs[0][:, :3], accs[1][:, :3], rtol=1e-3,
+                          atol=1e-5).all(dim=1).float().mean()
+    assert close >= 0.99
+
+
+def test_tail_schedule_matches_cpu(dev, monkeypatch):
+    """The full-size schedule at a small size: the room at 64x64 in 2 bands
+    of 2,048 lanes with the tail gate lowered to 2,048, so level 1 runs
+    several rounds. The card and the CPU reach the same rand_idx after every
+    frame and agree on at least 99% of the pixels."""
+    monkeypatch.setattr(ptm, 'TAIL_MIN_LANES', 2048)
+    monkeypatch.setattr(Pathtracer, 'MAX_LANES_PER_DISPATCH', 2048)
+    runs = []
+    for device in (dev, torch.device('cpu')):
+        pt = Pathtracer(build_room(scene_mod, builder.add_cube), 64, 64,
+                        device=device)
+        assert pt.bands == 2
+        cam = Camera.create(**CAMERA, device=device)
+        ridx = []
+        for clear in (True, False, False):
+            pt.render(cam, should_clear=clear)
+            ridx.append(pt.rand_idx)
+        runs.append((ridx, pt.accumulators_pixel_order()[0].cpu()))
+    (card_ridx, card), (cpu_ridx, cpu) = runs
+    assert card_ridx == cpu_ridx
+    close = torch.isclose(card[:, :3], cpu[:, :3], rtol=1e-3,
                           atol=1e-5).all(dim=1).float().mean()
     assert close >= 0.99
