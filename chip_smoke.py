@@ -626,23 +626,31 @@ def main() -> int:
         f'between the CUDA path and the CPU path')
     if close < 0.99:
         failures.append(f'room render: only {close:.4f} of pixels agree')
-    with patched(ptm, 'TAIL_MIN_LANES', 2048), \
-            patched(Pathtracer, 'MAX_LANES_PER_DISPATCH', 2048):
+    for spp in (1, 2):
+        # spp 2 batches two sample-major lane blocks per dispatch: per-lane
+        # rand_idx windows, one guiding scatter over offset segment ids and
+        # the EMA once per sample
         runs = {}
-        for d in ('cuda', 'cpu'):
-            with ScheduleTap() as sched_r:
-                runs[d] = room(d, 64, 64, (True, False, False))
-            runs[d] += (sched_r.rounds(ptm.TAIL_START),
-                        sched_r.rounds(ptm.TAIL2_START))
-    close = agree(runs['cuda'][0], runs['cpu'][0])
-    log(f'room 64x64 in {runs["cuda"][2]} bands of 2048 lanes, tail gate 2048, '
-        f'clear + 2 converge samples: rand_idx per frame {runs["cuda"][1]} '
-        f'(card) vs {runs["cpu"][1]} (CPU), tail rounds (level 1, level 2) '
-        f'{runs["cuda"][3:]} vs {runs["cpu"][3:]}; {close:.4f} of pixels agree')
-    if runs['cuda'][1] != runs['cpu'][1] or close < 0.99 \
-            or runs['cuda'][3] <= runs['cuda'][2] * 2:
-        failures.append('tail room: the card and the CPU disagree, or level 1 '
-                        'took one round per band')
+        with patched(ptm, 'TAIL_MIN_LANES', 2048), \
+                patched(Pathtracer, 'MAX_LANES_PER_DISPATCH', 2048), \
+                patched(Pathtracer, 'SPP_PER_DISPATCH', spp):
+            for d in ('cuda', 'cpu'):
+                with ScheduleTap() as sched_r:
+                    runs[d] = room(d, 64, 64, (True, False, False))
+                runs[d] += (sched_r.rounds(ptm.TAIL_START),
+                            sched_r.rounds(ptm.TAIL2_START),
+                            max(b['rounds'].get(ptm.TAIL_START, 0)
+                                for b in sched_r.bands))
+        close = agree(runs['cuda'][0], runs['cpu'][0])
+        log(f'room 64x64 at spp {spp} in {runs["cuda"][2]} bands of 2048 '
+            f'lanes, tail gate 2048, clear + 2 converge dispatches: rand_idx '
+            f'per frame {runs["cuda"][1]} (card) vs {runs["cpu"][1]} (CPU), '
+            f'tail rounds (level 1, level 2) {runs["cuda"][3:5]} vs '
+            f'{runs["cpu"][3:5]}; {close:.4f} of pixels agree')
+        if runs['cuda'][1] != runs['cpu'][1] or close < 0.99 \
+                or runs['cuda'][5] <= 1:
+            failures.append(f'tail room at spp {spp}: the card and the CPU '
+                            f'disagree, or level 1 took one round per band')
 
     loaded = sorted(m for m in sys.modules
                     if (m in ('jax', 'cuda_pathtracer_tpu')

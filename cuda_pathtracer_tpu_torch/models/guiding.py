@@ -94,11 +94,3 @@ def propagate(state: RadianceState, add_sum, add_count,
     new_total = state.total + torch.sum(new_cache - state.cache, dim=-1)
     return RadianceState(new_cache, new_total)
 
-
-def update_radiance_state(state: RadianceState, cache: SampleCache,
-                          total_energy, enabled: bool) -> RadianceState:
-    """One guiding step: bucket sums, then the EMA.
-    total_energy: f32[B, 3], the pixel's color this sample."""
-    add_sum, add_count = accumulate_buckets(state.cache.shape[0], cache,
-                                            total_energy)
-    return propagate(state, add_sum, add_count, enabled)

@@ -5,19 +5,27 @@
 Profiles, with ``torch.profiler``, one clearing frame of the CLI's animated
 path (the ``outside`` scene at 1920x1080, ``Scene.update`` at t = 5 so the
 frame refits the moved cubes, 5 samples of at most 5 bounces, NEE) and one
-converge sample of the sibenik path (1920x1080, 32 bounces), each after a
-warm-up of the same work. ``--v1`` traces with the split-table kernel;
-``--one-band`` renders each frame as one band (the lane cap raised to the
-frame) instead of the engine's default bands.
+converge sample of the sibenik path (1920x1080, 32 bounces). ``--v1``
+traces with the split-table kernel; ``--one-band`` renders each frame as one
+band (the lane cap raised to the frame) instead of the engine's default
+bands.
 
-Prints, per frame, the wall time around synchronized work, the device-busy
-time (the union of the CUDA kernel intervals), the device's idle share, the
-kernel launches and the kernels that took the most device time; then one
-line per band and part of the schedule (the full-width bounces before the
-tail, each tail level): bounces run, rounds, the lane width of the bounces,
-the live lanes per bounce, the CUDA kernels, wall and busy time and the idle
-share. The profiled run synchronizes at each band and level boundary so that
-each part's kernels finish inside it. Needs a CUDA device.
+Each frame runs four times: a warm-up, an unprofiled run (its wall time
+around synchronized work), a profiled run with no synchronization beyond the
+engine's own, and a marked run, each of the same work (the sibenik runs
+each render the first converge sample from the state the clear frame left).
+From the profiled run
+it prints the wall time, the device-busy time (the union of the CUDA kernel
+intervals), the device's idle share against the profiled and the unprofiled
+wall, the kernel launches and the kernels that took the most device time.
+The marked run synchronizes around each band and tail level, so that each
+part's kernels finish inside it, and counts the live lanes of every bounce
+(one more sync per bounce); from it one line per band and part of the
+schedule (the full-width bounces before the tail, each tail level): bounces
+run, rounds, the lane width of the bounces, the live lanes per bounce, the
+CUDA kernels, wall and busy time and the idle share. Its syncs lengthen the
+parts' walls, so compare its idle shares with each other only. Needs a CUDA
+device.
 """
 from __future__ import annotations
 
@@ -43,13 +51,13 @@ class ScheduleTap:
     """While active, records the engine's schedule: one entry per
     render_sample call (a band of one dispatch) with its band index, the
     rounds of each tail level and, per part (``MAIN`` or a level's start
-    bounce), the lane width of each bounce. ``live=True`` also counts the
-    live lanes of each bounce (one more sync per bounce); ``mark=True``
-    synchronizes around each band and level and labels them for the
-    profiler as ``cpt/<call>/<part>``."""
+    bounce), the lane width of each bounce. ``mark=True`` also counts the
+    live lanes of each bounce (one more sync per bounce), synchronizes
+    around each band and level and labels them for the profiler as
+    ``cpt/<call>/<part>``."""
 
-    def __init__(self, live: bool = False, mark: bool = False):
-        self.live, self.mark = live, mark
+    def __init__(self, mark: bool = False):
+        self.mark = mark
         self.bands = []
         self._part = MAIN
 
@@ -94,7 +102,7 @@ class ScheduleTap:
         def bounce_body(scene, dyn, radiance, c, ln, **kw):
             b = tap.bands[-1]
             b['widths'][tap._part].append(c.alive.shape[0])
-            if tap.live:
+            if tap.mark:
                 b['lives'][tap._part].append(int(c.alive.sum()))
             return orig['_bounce_body'](scene, dyn, radiance, c, ln, **kw)
 
@@ -181,31 +189,51 @@ def _parts(tap: ScheduleTap, events, spans):
     return rows
 
 
-def _report(name: str, work, top: int = 8):
-    work()                      # warm-up
-    torch.cuda.synchronize()
-    kernels.reset_counts()
-    with ScheduleTap(live=True, mark=True) as tap, \
-            profile(activities=[ProfilerActivity.CPU,
-                                ProfilerActivity.CUDA]) as prof:
+def _profiled(work, tap: ScheduleTap):
+    """(wall ms, profiler) of one synchronized run of ``work`` under ``tap``
+    and the profiler."""
+    with tap, profile(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
         work()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t) * 1e3
-    events = prof.events()
-    spans = _cuda_spans(events)
-    busy, n = _busy(spans)
+    return wall, prof
+
+
+def _report(name: str, work, top: int = 8):
+    work()                      # warm-up
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    work()
+    torch.cuda.synchronize()
+    plain_wall = (time.perf_counter() - t) * 1e3
+
+    kernels.reset_counts()
+    tap = ScheduleTap()
+    wall, prof = _profiled(work, tap)
+    busy, n = _busy(_cuda_spans(prof.events()))
     busy /= 1e3
-    print(f'{name}: wall {wall:.1f} ms, device busy {busy:.1f} ms, idle share '
-          f'{1 - busy / wall:.3f}, {n} CUDA kernels; launches of the port\'s '
-          f'kernels {dict(kernels.LAUNCHES)}; {len(tap.bands)} band calls')
+    bodies = sum(len(w) for b in tap.bands for w in b['widths'].values())
+    print(f'{name}: unprofiled wall {plain_wall:.1f} ms; profiled wall '
+          f'{wall:.1f} ms, device busy {busy:.1f} ms, idle share '
+          f'{1 - busy / wall:.3f} ({1 - busy / plain_wall:.3f} of the '
+          f'unprofiled wall), {n} CUDA kernels, {bodies} bounce bodies; '
+          f'launches of the port\'s kernels {dict(kernels.LAUNCHES)}; '
+          f'{len(tap.bands)} band calls')
     rows = [r for r in prof.key_averages()
-            if getattr(r, 'device_time_total', 0) > 0
-            and not r.key.startswith('cpt/')]
+            if getattr(r, 'device_time_total', 0) > 0]
     rows.sort(key=lambda r: r.device_time_total, reverse=True)
     for r in rows[:top]:
         print(f'  {r.device_time_total / 1e3:9.2f} ms {r.count:6d} x  '
               f'{r.key[:90]}')
+
+    tap = ScheduleTap(mark=True)
+    wall, prof = _profiled(work, tap)
+    events = prof.events()
+    spans = _cuda_spans(events)
+    print(f'  marked run (a sync per bounce and around each band and level): '
+          f'wall {wall:.1f} ms')
     print('  band part      bounces rounds widths        live lanes per bounce '
           '(mean)  kernels  wall ms  busy ms  idle')
     for (band, part), r in sorted(_parts(tap, events, spans).items()):
@@ -249,7 +277,14 @@ def main(argv=None) -> int:
     pt = ptm.Pathtracer(scene, WIDTH, HEIGHT, device='cuda')
     cam = Camera.create([0.0, 5.0, -16.0], [0.0, 0.0, 1.0], 1.5, 12.0, 0.0)
     pt.render(cam, should_clear=True)
-    _report('sibenik converge sample', lambda: pt.render(cam))
+    start = (pt.lum, pt.alb, pt.radiance, pt.sample_idx, pt.rand_idx)
+
+    def converge_sample():
+        # every run renders the first converge sample from the same state,
+        # so the four runs do the same work
+        pt.lum, pt.alb, pt.radiance, pt.sample_idx, pt.rand_idx = start
+        pt.render(cam)
+    _report('sibenik converge sample', converge_sample)
     return 0
 
 

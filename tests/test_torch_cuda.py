@@ -132,18 +132,21 @@ def test_room_render_matches_cpu(dev):
     assert close >= 0.99
 
 
-def test_tail_schedule_matches_cpu(dev, monkeypatch):
-    """The full-size schedule at a small size: the room at 64x64 in 2 bands
-    of 2,048 lanes with the tail gate lowered to 2,048, so level 1 runs
-    several rounds. The card and the CPU reach the same rand_idx after every
-    frame and agree on at least 99% of the pixels."""
+@pytest.mark.parametrize('spp', [1, 2])
+def test_tail_schedule_matches_cpu(dev, monkeypatch, spp):
+    """The full-size schedule at a small size: the room at 64x64 in bands of
+    2,048 lanes (2 bands at spp 1, 4 sample-major bands at spp 2) with the
+    tail gate lowered to 2,048, so level 1 runs several rounds. The card and
+    the CPU reach the same rand_idx after every frame and agree on at least
+    99% of the pixels."""
     monkeypatch.setattr(ptm, 'TAIL_MIN_LANES', 2048)
     monkeypatch.setattr(Pathtracer, 'MAX_LANES_PER_DISPATCH', 2048)
+    monkeypatch.setattr(Pathtracer, 'SPP_PER_DISPATCH', spp)
     runs = []
     for device in (dev, torch.device('cpu')):
         pt = Pathtracer(build_room(scene_mod, builder.add_cube), 64, 64,
                         device=device)
-        assert pt.bands == 2
+        assert pt.bands == 2 * spp
         cam = Camera.create(**CAMERA, device=device)
         ridx = []
         for clear in (True, False, False):
