@@ -24,18 +24,21 @@ every kernel of a path must have launched on it, and no plain PyTorch version
 may have run on the card. Then each kernel is held against its plain version
 on the main path's own inputs: v2 traversal on the primary, shadow, bounce-1
 and first level-1 tail waves of the first band of sibenik's first converge
-sample (found and t bit-identical), the v1 traversal on the same waves
-(against its plain version found and t bit-identical; against v2 found
-equal, and t equal but on exact ties between two triangles), the guiding
-scatter on that band's updates (rtol 1e-5), the blur on the final 1920x1080
-accumulators in pixel order (rtol 1e-6). The refitted outside tables are
-held to a forced full rebuild on the card (atol 2e-4, NaN slots equal), and
-two small rooms render alike on the card and on the CPU: 64x48 below the
-tail gate, and 64x64 in 2 bands of 2,048 lanes with the gate lowered to
-2,048 (equal ``rand_idx`` after every frame). Kernel and plain times come
-from CUDA events; each kernel's bound is the larger of its bytes over 3.35
-TB/s and its FP32 operations over 67 TFLOP/s, counted from this run's inputs
-(for the traversals, the node and leaf visits of the plain walks).
+sample (found, t and gid bit-identical, u, v within 1e-6), the v1 traversal
+on the same waves (against its plain version found, t and gid bit-identical;
+against v2 found equal, and t equal but on exact ties between two triangles),
+each wave also timed with no ray live (the launch floor), with its visits per
+live ray and the kernel's share of its bound; the guiding scatter on that
+band's updates (rtol 1e-5), the blur on the final 1920x1080 accumulators in
+pixel order (rtol 1e-6). The refitted outside tables are held to a forced
+full rebuild on the card (atol 2e-4, NaN slots equal), and two small rooms
+render alike on the card and on the CPU: 64x48 below the tail gate, and 64x64
+in 2 bands of 2,048 lanes with the gate lowered to 2,048 (equal ``rand_idx``
+after every frame). Kernel and plain times come from CUDA events, behind a
+sleep kernel that lets the host queue every launch first (device time, not
+the wrapper's host time); each kernel's bound is the larger of its bytes over
+3.35 TB/s and its FP32 operations over 67 TFLOP/s, counted from this run's
+inputs (for the traversals, the node and leaf visits of the plain walks).
 
 Prints the card's name and power limit, the build time, per-phase lines,
 then one JSON line of per-kernel results, the card line, and as its last line
@@ -83,6 +86,7 @@ FP32_OPS_PER_S = 67e12
 # the cross, dot, reciprocal, u/v/t products and the 8 acceptance tests)
 SLAB_OPS = 16 * 25
 LEAF_OPS = 12 * 56
+PREROLL_CYCLES = 20_000_000   # ~10 ms of sleep kernel at the H100's clock
 
 
 def log(msg: str):
@@ -95,11 +99,17 @@ def card_line() -> str:
         capture_output=True, text=True, check=True).stdout.strip()
 
 
-def cuda_ms(fn, reps: int = 1, warmup: int = 0):
-    """Mean milliseconds of fn() over reps, from CUDA events."""
+def cuda_ms(fn, reps: int = 1, warmup: int = 0, preroll: bool = False):
+    """Mean milliseconds of fn() over reps, from CUDA events. With
+    ``preroll`` a sleep kernel runs first, so the host has queued every call
+    before the first one starts: the device's time, not the host's time per
+    call (the way to time one kernel whose launches are shorter than their
+    wrapper)."""
     import torch
     for _ in range(warmup):
         fn()
+    if preroll:
+        torch.cuda._sleep(PREROLL_CYCLES)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -343,6 +353,16 @@ def main() -> int:
            for k in ('traverse', 'traverse_packet')}
     tables = tp1.PacketTables(pt.dyn.packet_inner, pt.dyn.packet_leaf,
                               pt.dyn.depth)
+
+    def wave_line(name, wave, n_live, stats, ms, pms, n_bytes, n_ops, floor):
+        b = bound(n_bytes, n_ops)[0]
+        visits = stats['inner'] + stats['leaf']
+        return (f'{name} {wave}: {stats["inner"]} inner + {stats["leaf"]} leaf '
+                f'visits, {visits / max(n_live, 1):.2f} per live ray | kernel '
+                f'{ms:.4f} ms, with no ray live {floor:.4f} ms, plain '
+                f'{pms:.1f} ms, bound {b:.4f} ms, share of bound '
+                f'{b / ms:.3f}')
+
     for wave in ('primary', 'shadow', 'bounce-1', 'tail-1'):
         if wave not in trav.saved:
             failures.append(f'traverse: no {wave} wave captured')
@@ -350,31 +370,36 @@ def main() -> int:
         (table, ro, rd, t0, live, stop), kw = trav.saved[wave]
         want_uv = kw.get('want_uv', False)
         any_hit = bool(stop.all())
+        n_live = int(live.sum())
+        dead = torch.zeros_like(live)
         ms, (t, gid, found, u, v) = cuda_ms(
             lambda: tp2.traverse_merged(table, ro, rd, t0, live, stop, want_uv),
-            reps=3, warmup=1)
+            reps=10, warmup=1, preroll=True)
+        floor, _ = cuda_ms(
+            lambda: tp2.traverse_merged(table, ro, rd, t0, dead, stop, want_uv),
+            reps=10, warmup=1, preroll=True)
         st2 = {}
         pms, (pt_, pgid, pfound, pu, pv) = cuda_ms(
             lambda: tp2.traverse_merged_ref(table, ro, rd, t0, live, stop,
                                             want_uv, stats=st2))
         same_found = bool(torch.equal(found, pfound))
         t_bits = int((t.view(torch.int32) != pt_.view(torch.int32)).sum())
-        gid_diff = int(((gid != pgid) & found).sum())
-        hits = max(int(found.sum()), 1)
+        gid_diff = int((gid != pgid).sum())
+        hits = int(found.sum())
         err = float((t - pt_)[found].abs().max()) if bool(found.any()) else 0.0
-        uv_err = (float(torch.maximum((u - pu).abs(), (v - pv).abs())[found].max())
+        uv_err = (float(torch.maximum((u - pu).abs(),
+                                      (v - pv).abs())[found].max())
                   if want_uv and bool(found.any()) else 0.0)
         n_bytes, n_ops = traversal_work(ro.shape[0], 9 + (8 if want_uv else 0),
                                         st2)
-        log(f'traverse {wave}: {ro.shape[0]} rays, {int(live.sum())} live, '
-            f'{hits} hits, {st2["inner"]} inner + {st2["leaf"]} leaf visits | '
-            f'kernel {ms:.3f} ms, plain {pms:.1f} ms, bound '
-            f'{bound(n_bytes, n_ops)[0]:.4f} ms | found equal={same_found}, '
-            f't bit mismatches={t_bits}, gid mismatches={gid_diff}, '
-            f'max|dt|={err}, max|duv|={uv_err}')
+        log(f'traverse {wave}: {ro.shape[0]} rays, {n_live} live, {hits} hits')
+        log('  ' + wave_line('traverse', wave, n_live, st2, ms, pms, n_bytes,
+                             n_ops, floor))
+        log(f'  found equal={same_found}, t bit mismatches={t_bits}, gid '
+            f'mismatches={gid_diff}, max|dt|={err}, max|duv|={uv_err}')
         if not same_found or t_bits:
             failures.append(f'traverse {wave}: kernel disagrees with plain')
-        if gid_diff > 0.001 * hits:
+        if gid_diff:
             failures.append(f'traverse {wave}: {gid_diff} gid mismatches')
         if uv_err > 1e-6:
             failures.append(f'traverse {wave}: uv differ by {uv_err}')
@@ -388,14 +413,17 @@ def main() -> int:
         # v1 on the same wave (the dispatch walks any-hit waves cheap)
         ms1, (t1, gid1, found1) = cuda_ms(
             lambda: tp1.traverse_split(tables, ro, rd, t0, live, stop, any_hit),
-            reps=3, warmup=1)
+            reps=10, warmup=1, preroll=True)
+        floor1, _ = cuda_ms(
+            lambda: tp1.traverse_split(tables, ro, rd, t0, dead, stop, any_hit),
+            reps=10, warmup=1, preroll=True)
         st1 = {}
         pms1, (pt1, pgid1, pfound1) = cuda_ms(
             lambda: tp1.traverse_packet_ref(tables, ro, rd, t0, live, stop,
                                             any_hit, stats=st1))
         same_found1 = bool(torch.equal(found1, pfound1))
         t_bits1 = int((t1.view(torch.int32) != pt1.view(torch.int32)).sum())
-        gid_diff1 = int(((gid1 != pgid1) & found1).sum())
+        gid_diff1 = int((gid1 != pgid1).sum())
         err1 = float((t1 - pt1)[found1].abs().max()) if bool(found1.any()) else 0.0
         # against v2: found equal; closest t equal except where two triangles
         # tie to within rounding at an edge and the visit order picks the
@@ -407,15 +435,15 @@ def main() -> int:
         rel_off = (float(((t1 - t).abs() / t.abs().clamp_min(1e-30))[t_off].max())
                    if n_t_off else 0.0)
         n_bytes1, n_ops1 = traversal_work(ro.shape[0], 9, st1)
-        log(f'traverse_packet {wave}: {st1["inner"]} inner + {st1["leaf"]} leaf '
-            f'visits | kernel {ms1:.3f} ms, plain {pms1:.1f} ms, bound '
-            f'{bound(n_bytes1, n_ops1)[0]:.4f} ms | vs plain: found '
-            f'equal={same_found1}, t bit mismatches={t_bits1}, gid mismatches='
-            f'{gid_diff1} | vs v2: found equal={v2_found}, t differs on '
-            f'{n_t_off} rays (all ties={tie_only}, max rel {rel_off:.2e})')
+        log('  ' + wave_line('traverse_packet', wave, n_live, st1, ms1, pms1,
+                             n_bytes1, n_ops1, floor1))
+        log(f'  vs plain: found equal={same_found1}, t bit mismatches='
+            f'{t_bits1}, gid mismatches={gid_diff1} | vs v2: found equal='
+            f'{v2_found}, t differs on {n_t_off} rays (all ties={tie_only}, '
+            f'max rel {rel_off:.2e})')
         if not same_found1 or t_bits1:
             failures.append(f'traverse_packet {wave}: kernel disagrees with plain')
-        if gid_diff1 > 0.001 * hits:
+        if gid_diff1:
             failures.append(f'traverse_packet {wave}: {gid_diff1} gid mismatches')
         if not v2_found:
             failures.append(f'traverse_packet {wave}: found differs from v2')
@@ -438,14 +466,15 @@ def main() -> int:
     # ---- kernel vs plain: guiding scatter on the first converge sample ----
     (e, w, seg, n_bins), _ = scat.saved[0]
     ms, (ke, kw_) = cuda_ms(lambda: gs_mod.segment_sum_pairs(e, w, seg, n_bins),
-                            reps=5, warmup=1)
+                            reps=5, warmup=1, preroll=True)
     pms, (pe, pw) = cuda_ms(lambda: gs_mod.segment_sum_pairs_ref(e, w, seg, n_bins),
-                            reps=5, warmup=1)
+                            reps=5, warmup=1, preroll=True)
     # the library yardstick: one index_add_ of the (e, w) pairs
     idx = seg.to(torch.int64)
     pairs = torch.stack([e, w], dim=1)
     lib_out = torch.zeros((n_bins + 1, 2), dtype=torch.float32, device='cuda')
-    lms, _ = cuda_ms(lambda: lib_out.index_add_(0, idx, pairs), reps=5, warmup=1)
+    lms, _ = cuda_ms(lambda: lib_out.index_add_(0, idx, pairs), reps=5,
+                     warmup=1, preroll=True)
     err = float(torch.maximum((ke - pe).abs().max(), (kw_ - pw).abs().max()))
     ok = (torch.allclose(ke, pe, rtol=1e-5, atol=1e-5)
           and torch.allclose(kw_, pw, rtol=1e-5, atol=1e-5))
@@ -465,10 +494,11 @@ def main() -> int:
     n = float(pt.sample_idx)
     lum_px, alb_px = pt.accumulators_pixel_order()
     ms, kout = cuda_ms(lambda: blur_mod.blur_luminance(lum_px, alb_px, n, WIDTH,
-                                                       HEIGHT), reps=5, warmup=1)
+                                                       HEIGHT),
+                       reps=5, warmup=1, preroll=True)
     pms, pout = cuda_ms(lambda: blur_mod.blur_luminance_ref(lum_px, alb_px, n,
                                                             WIDTH, HEIGHT),
-                        reps=5, warmup=1)
+                        reps=5, warmup=1, preroll=True)
     err = float((kout - pout).abs().max())
     ok = bool(torch.isfinite(kout).all()) and torch.allclose(kout, pout,
                                                              rtol=1e-6, atol=0)

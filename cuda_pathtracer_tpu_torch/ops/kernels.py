@@ -80,32 +80,33 @@ def _nvcc() -> str:
     raise RuntimeError('nvcc not found: the CUDA kernels cannot be built')
 
 
-def _sources():
-    return sorted(os.path.join(CSRC, f) for f in os.listdir(CSRC)
+def _sources(src_dir: str):
+    return sorted(os.path.join(src_dir, f) for f in os.listdir(src_dir)
                   if f.endswith(('.cu', '.cuh')))
 
 
-def library_path() -> str:
+def library_path(src_dir: str = CSRC, build_dir: str = BUILD_DIR) -> str:
     h = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources(src_dir):
         with open(src, 'rb') as f:
             h.update(os.path.basename(src).encode() + f.read())
-    return os.path.join(BUILD_DIR, f'libcpt_kernels_{h.hexdigest()[:16]}.so')
+    return os.path.join(build_dir, f'libcpt_kernels_{h.hexdigest()[:16]}.so')
 
 
-def build() -> str:
+def build(src_dir: str = CSRC, build_dir: str = BUILD_DIR) -> str:
     """Compile the library unless an up-to-date one exists; returns its path.
     One ``nvcc -c`` per source, all started together, then one link. The
     commands and the ptxas report (registers, spills) are kept beside the
-    library as ``.log``."""
-    so = library_path()
+    library as ``.log``. Another source directory (an earlier version of
+    ``csrc/``, for a timing comparison) builds into its own library."""
+    so = library_path(src_dir, build_dir)
     if os.path.exists(so):
         return so
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    os.makedirs(build_dir, exist_ok=True)
     stem = f'{so[:-3]}.{os.getpid()}'
     nvcc = _nvcc()
     jobs = []
-    for cu in (s for s in _sources() if s.endswith('.cu')):
+    for cu in (s for s in _sources(src_dir) if s.endswith('.cu')):
         obj = f'{stem}.{os.path.basename(cu)}.o'
         cmd = [nvcc, *NVCC_FLAGS, '-c', '-o', obj, cu]
         jobs.append((cmd, obj, subprocess.Popen(
@@ -134,16 +135,21 @@ def build() -> str:
     return so
 
 
+def load(so: str):
+    """A built library, loaded with its C entry points typed."""
+    lib = ctypes.CDLL(so)
+    for name, (res, args) in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.restype = res
+        fn.argtypes = args
+    return lib
+
+
 def library():
     """The loaded kernel library (built on first use)."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(build())
-        for name, (res, args) in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.restype = res
-            fn.argtypes = args
-        _lib = lib
+        _lib = load(build())
     return _lib
 
 
@@ -152,6 +158,14 @@ def check(err: int, name: str):
     if err != 0:
         msg = library().cpt_error_string(err).decode()
         raise RuntimeError(f'{name} kernel launch failed: {msg} ({err})')
+
+
+def check_group_count(name: str, n_rays: int):
+    """The traversal kernels give each ray a group of 16 threads, and index
+    threads with 32-bit ints: ``16 * n_rays`` must fit."""
+    if n_rays > (2 ** 31 - 1) // 16:
+        raise ValueError(f'{name}: {n_rays} rays exceed the kernel\'s '
+                         f'{(2 ** 31 - 1) // 16} (16 threads per ray)')
 
 
 def stream_of(tensor) -> int:

@@ -15,15 +15,16 @@ These are the tables the scene refits on the device for every animated frame
 (``accel/refit.py``); the v2 merged table is re-derived from them
 (``ops/traverse_packet2.py::derive_merged``).
 
-:func:`traverse_split` launches ``csrc/traverse_packet.cu`` (one thread per
-ray) on CUDA tensors; :func:`traverse_packet_ref` is the plain PyTorch
-version of the same walk, used on the CPU and as the kernel's reference on
-the card. Both follow the TPU kernel's rules per ray: nearest-first descent
-(lowest-index descent for any-hit calls), a (row, visited-mask) stack whose
-pop re-fetches the parent row and re-prunes against the improved ``t``, and
-lowest triangle id on an exact-``t`` tie inside a leaf. Neither returns
-barycentrics. :func:`traverse_packet` adds the sphere/plane prepass and
-returns the renderer's :class:`Hit` with ``u = v = None``.
+:func:`traverse_split` launches ``csrc/traverse_packet.cu`` (one 16-lane group
+per ray, a lane per child slot) on CUDA tensors; :func:`traverse_packet_ref`
+is the plain PyTorch version of the same walk, used on the CPU and as the
+kernel's reference on the card. Both follow the TPU kernel's rules per ray:
+nearest-first descent (lowest-index descent for any-hit calls), a (row,
+visited-mask) stack whose pop re-fetches the parent row and re-prunes against
+the improved ``t``, and lowest triangle id on an exact-``t`` tie inside a
+leaf. Neither returns barycentrics. :func:`traverse_packet` adds the
+sphere/plane prepass and returns the renderer's :class:`Hit` with ``u = v =
+None``.
 """
 from __future__ import annotations
 
@@ -266,6 +267,7 @@ def traverse_split(tables: PacketTables, ro, rd, t0, live, stop,
     if ro.shape != (B, 3) or rd.shape != (B, 3) or t0.shape != (B,) \
             or live.shape != (B,) or stop.shape != (B,):
         raise ValueError('traverse_packet: ray tensors disagree on shape')
+    kernels.check_group_count('traverse_packet', B)
     lib = kernels.library()
     cap = stack_cap(tables.depth)
     if cap > lib.cpt_traverse_packet_max_stack():

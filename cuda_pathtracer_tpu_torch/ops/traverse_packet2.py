@@ -12,9 +12,10 @@ children first, so a visit needs only ``(hitmask, base | n_inner << 20)``:
     field-major 9 x 12 order at [0:108]; world-triangle ids as int32 bits at
     [108:120].
 
-:func:`traverse_merged` launches ``csrc/traverse.cu`` (one thread per ray)
-on CUDA tensors; :func:`traverse_merged_ref` is the plain PyTorch version of
-the same walk, used on the CPU and as the kernel's reference on the card.
+:func:`traverse_merged` launches ``csrc/traverse.cu`` (one 16-lane group per
+ray, a lane per child slot) on CUDA tensors; :func:`traverse_merged_ref` is
+the plain PyTorch version of the same walk, used on the CPU and as the
+kernel's reference on the card.
 Both descend lowest slot first with a stack of (hitmask, meta) entries and
 test a leaf's triangles against the ``t`` the ray had on entering the leaf;
 within a leaf an exact-``t`` tie goes to the lowest triangle id. The TPU
@@ -350,6 +351,7 @@ def traverse_merged(table: MergedTable, ro, rd, t0, live, stop,
     if ro.shape != (B, 3) or rd.shape != (B, 3) or t0.shape != (B,) \
             or live.shape != (B,) or stop.shape != (B,):
         raise ValueError('traverse: ray tensors disagree on shape')
+    kernels.check_group_count('traverse', B)
     lib = kernels.library()
     if table.depth + 2 > lib.cpt_traverse_max_stack():
         raise ValueError(f'traverse: tree depth {table.depth} exceeds the '

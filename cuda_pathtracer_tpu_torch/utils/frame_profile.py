@@ -18,7 +18,9 @@ From the profiled run
 it prints the wall time, the device-busy time (the union of the CUDA kernel
 intervals), the device's idle share against the profiled and the unprofiled
 wall, the kernel launches and the kernels that took the most device time.
-The marked run synchronizes around each band and tail level, so that each
+It also prints the device time of each of the port's own kernels (``csrc/``)
+by name, and of all traversal launches together. The marked run
+synchronizes around each band and tail level, so that each
 part's kernels finish inside it, and counts the live lanes of every bounce
 (one more sync per bounce); from it one line per band and part of the
 schedule (the full-width bounces before the tail, each tail level): bounces
@@ -45,6 +47,9 @@ from ..scene.builder import get_scene
 
 WIDTH, HEIGHT = 1920, 1080
 MAIN = 0   # the part key of the full-width bounces before the tail
+# the __global__ functions of csrc/, as the profiler names them
+PORT_KERNELS = ('traverse_kernel', 'traverse_packet_kernel',
+                'guiding_scatter_kernel', 'blur_h_kernel', 'blur_v_kernel')
 
 
 class ScheduleTap:
@@ -227,6 +232,14 @@ def _report(name: str, work, top: int = 8):
     for r in rows[:top]:
         print(f'  {r.device_time_total / 1e3:9.2f} ms {r.count:6d} x  '
               f'{r.key[:90]}')
+    ours = [(name, r) for r in rows for name in PORT_KERNELS
+             if name + '(' in r.key]
+    trav = sum(r.device_time_total for name, r in ours
+               if name.startswith('traverse')) / 1e3
+    print('  the port\'s kernels: ' + '; '.join(
+        f'{name} {r.device_time_total / 1e3:.3f} ms over {r.count}'
+        for name, r in ours) + f'; traverse* {trav:.3f} ms of {busy:.1f} ms '
+        f'busy')
 
     tap = ScheduleTap(mark=True)
     wall, prof = _profiled(work, tap)

@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_traverse_cases as cases
 from _torch_room import build_room, CAMERA
 from cuda_pathtracer_tpu_torch.core.camera import Camera
 from cuda_pathtracer_tpu_torch.models import pathtracer as ptm
@@ -93,6 +94,50 @@ def test_traverse_packet_kernel_matches_plain(dev, room, cheap):
     assert found.any() and torch.equal(found, pfound)
     assert torch.equal(t.view(torch.int32), pt.view(torch.int32))
     assert torch.equal(gid, pgid)
+
+
+@pytest.fixture(scope='module')
+def hard_cases(dev):
+    wide, depth = cases.wide_table()
+    z = {k: torch.as_tensor(v, device=dev) for k, v in cases.rays().items()}
+    merged = tp2.MergedTable(torch.as_tensor(
+        tp2.build_merged_table(wide, depth).rows, device=dev), depth)
+    return merged, tp1.split_packet_tables(wide, depth, device=dev), z
+
+
+@pytest.mark.parametrize('walk', ['v2', 'v2 any-hit', 'v1', 'v1 cheap',
+                                  'v1 short stack'])
+def test_traversal_kernels_on_hard_cases(dev, hard_cases, walk):
+    """Both kernels against their plain versions on the hard cases of
+    ``_torch_traverse_cases.py`` (axis rays, grazing and edge rays, origins
+    inside boxes, exact-t ties, short t_max, stop-on-hit and dead lanes, the
+    24-level chain): every output bit-identical. ``v1 short stack`` gives the
+    walk a stack of one entry, so most pushes are dropped (which changes the
+    hits of a few rays: both must drop the same ones)."""
+    merged, split, z = hard_cases
+    stop = torch.ones_like(z['stop']) if walk == 'v2 any-hit' else z['stop']
+    args = (z['ro'], z['rd'], z['t_max'], z['active'], stop)
+    before = dict(kernels.LAUNCHES)
+    if walk.startswith('v2'):
+        name = 'traverse'
+        got = tp2.traverse_merged(merged, *args, want_uv=True)
+        want = tp2.traverse_merged_ref(merged, *args, want_uv=True)
+    else:
+        name = 'traverse_packet'
+        if walk == 'v1 short stack':
+            split = split._replace(depth=-7)
+            assert tp1.stack_cap(split.depth) == 1
+        cheap = walk == 'v1 cheap'
+        got = tp1.traverse_split(split, *args, cheap)
+        want = tp1.traverse_packet_ref(split, *args, cheap)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[name] == before[name] + 1
+    assert want[2].any() and not want[2].all()
+    for k, a, b in zip(('t', 'gid', 'found', 'u', 'v'), got, want):
+        if a is not None:
+            if a.dtype == torch.float32:
+                a, b = a.view(torch.int32), b.view(torch.int32)
+            assert torch.equal(a, b), k
 
 
 def test_guiding_scatter_kernel_matches_plain(dev):
