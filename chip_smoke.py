@@ -2,8 +2,9 @@
 
     python3 chip_smoke.py
 
-Builds the four hand-written CUDA kernels from ``cuda_pathtracer_tpu_torch/
-csrc`` and drives the port's two paths once at full size:
+Builds the eight hand-written CUDA kernels from ``cuda_pathtracer_tpu_torch/
+csrc`` and drives the port's two render paths once at full size, then the
+four probe kernels' sweeps:
 
 1. the converge path: the sibenik scene at 1920x1080, one clear frame, 4
    converge samples (32 bounces, NEE, guiding training) and the blurred
@@ -40,6 +41,15 @@ the wrapper's host time); each kernel's bound is the larger of its bytes over
 3.35 TB/s and its FP32 operations over 67 TFLOP/s, counted from this run's
 inputs (for the traversals, the node and leaf visits of the plain walks).
 
+3. the ``tools`` probes (``cuda_pathtracer_tpu_torch/tools/``), the Hopper
+   counterparts of 14 Pallas probes under the repo's ``tools/``: each
+   module's ``probe`` runs the TPU probe's own sweep through its kernel
+   (row gathers, the bf16 slab chain, the scripted packet step, the one-hot
+   fetch) with the counts set to 0 just before; every case is then held to
+   its plain version bit for bit, and one answer line per probe is printed
+   with its Hopper question's table (dependent row reads by table size,
+   SASS counts, ns per step, ns per lane-step).
+
 Prints the card's name and power limit, the build time, per-phase lines,
 then one JSON line of per-kernel results, the card line, and as its last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, with no result line, when
@@ -53,10 +63,11 @@ import io
 import json
 import os
 import re
-import subprocess
 import sys
 import tempfile
 import time
+
+from cuda_pathtracer_tpu_torch.tools.timing import bound, card_line, cuda_ms
 
 KERNELS = {
     'traverse': ('cuda_pathtracer_tpu_torch/csrc/traverse.cu',
@@ -67,6 +78,21 @@ KERNELS = {
              'cuda_pathtracer_tpu/ops/blur_pallas.py:40'),
     'traverse_packet': ('cuda_pathtracer_tpu_torch/csrc/traverse_packet.cu',
                         'cuda_pathtracer_tpu/ops/traverse_packet.py:180'),
+    'probe_gather': ('cuda_pathtracer_tpu_torch/csrc/probe_gather.cu',
+                     'tools/pallas_gather_probe1.py:16, '
+                     'tools/pallas_gather_probe2.py:12, '
+                     'tools/pallas_gather_probe2.py:27, '
+                     'tools/pallas_gather_probe3.py:12, '
+                     'tools/pallas_probe_r2a.py:10, tools/pallas_probe_r2f.py:18'),
+    'probe_slab': ('cuda_pathtracer_tpu_torch/csrc/probe_slab.cu',
+                   'tools/bf16_vpu_probe.py:56'),
+    'probe_step': ('cuda_pathtracer_tpu_torch/csrc/probe_step.cu',
+                   'tools/pallas_probe_r2b.py:49, tools/pallas_probe_r2c.py:63, '
+                   'tools/pallas_probe_r2d.py:52, tools/pallas_probe_r2e.py:62'),
+    'probe_onehot': ('cuda_pathtracer_tpu_torch/csrc/probe_onehot.cu',
+                     'tools/pallas_probe_onehot.py:63, '
+                     'tools/pallas_probe_onehot2.py:74, '
+                     'tools/pallas_probe_onehot3.py:68'),
 }
 # the kernels each path must launch
 SIBENIK_KERNELS = ('traverse', 'guiding_scatter', 'blur')
@@ -77,54 +103,16 @@ OUTSIDE_ARGS = ['--scene', 'outside', '--width', str(WIDTH), '--height',
                 str(HEIGHT), '--time', '5', '--spp', '4', '--blur',
                 '--device', 'cuda']
 
-# the card's peaks for bound_ms (NVIDIA H100 SXM data sheet)
-HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
 # FP32 operations per visit, as the kernels do them: an inner visit slab-tests
 # 16 slots (6 mul, 6 sub, 6 min/max, 4 for the tmin/tmax reductions, 1 max,
 # 2 compares); a leaf visit runs Moller-Trumbore on 12 triangles (56 each:
 # the cross, dot, reciprocal, u/v/t products and the 8 acceptance tests)
 SLAB_OPS = 16 * 25
 LEAF_OPS = 12 * 56
-PREROLL_CYCLES = 20_000_000   # ~10 ms of sleep kernel at the H100's clock
 
 
 def log(msg: str):
     print(msg, flush=True)
-
-
-def card_line() -> str:
-    return subprocess.run(
-        ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
-        capture_output=True, text=True, check=True).stdout.strip()
-
-
-def cuda_ms(fn, reps: int = 1, warmup: int = 0, preroll: bool = False):
-    """Mean milliseconds of fn() over reps, from CUDA events. With
-    ``preroll`` a sleep kernel runs first, so the host has queued every call
-    before the first one starts: the device's time, not the host's time per
-    call (the way to time one kernel whose launches are shorter than their
-    wrapper)."""
-    import torch
-    for _ in range(warmup):
-        fn()
-    if preroll:
-        torch.cuda._sleep(PREROLL_CYCLES)
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        out = fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps, out
-
-
-def bound(n_bytes: float, n_ops: float):
-    """(bound_ms, bound_by): the least time for the work on this card."""
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / FP32_OPS_PER_S * 1e3
-    return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
 
 
 class Recorder:
@@ -175,6 +163,45 @@ def traversal_work(n_rays: int, n_out: int, stats: dict, row_bytes: int = 512):
     n_bytes = n_rays * (12 + 12 + 4 + 1 + 1) + n_rays * n_out + rows * row_bytes
     n_ops = stats['inner'] * SLAB_OPS + stats['leaf'] * LEAF_OPS
     return n_bytes, n_ops
+
+
+def run_probes(launches: dict, results: dict, failures: list):
+    """Phase 3: each probe module's own sweep through its kernel, with the
+    launch counts set to 0 just before it and read just after, then every
+    case held to the plain version (bit for bit); fills ``launches`` and
+    ``results`` and appends to ``failures``."""
+    import torch
+    from cuda_pathtracer_tpu_torch.ops import kernels
+    from cuda_pathtracer_tpu_torch.tools import (bf16_probe, gather_probe,
+                                                 onehot_probe, step_probe)
+    for name, mod in (('probe_gather', gather_probe), ('probe_slab', bf16_probe),
+                      ('probe_step', step_probe),
+                      ('probe_onehot', onehot_probe)):
+        t = time.perf_counter()
+        kernels.reset_counts()
+        rows = mod.probe('cuda')
+        torch.cuda.synchronize()
+        launches[name] = kernels.LAUNCHES[name]
+        plain = kernels.PLAIN_ON_CUDA[name]
+        if launches[name] <= 0:
+            failures.append(f'{name}: no launch on its probe sweep')
+        if plain:
+            failures.append(f'{name}: {plain} plain versions on CUDA in its '
+                            f'probe sweep')
+        rows = mod.compare(rows)
+        bad = [r.get('site', r.get('label')) for r in rows if not r['equal']]
+        if bad:
+            failures.append(f'{name}: kernel disagrees with plain on {bad}')
+        if mod is gather_probe:
+            lines = [gather_probe.site_line(r) for r in rows]
+            lines += gather_probe.hopper_question()
+        else:
+            lines = mod.hopper_question(rows)
+        for line in lines:
+            log('  ' + line)
+        results[name] = mod.summary(rows)
+        log(f'{mod.answer(rows)} | {launches[name]} launches, '
+            f'{time.perf_counter() - t:.1f} s')
 
 
 def run_cli(main, args, packet_v1: bool):
@@ -681,6 +708,8 @@ def main() -> int:
                 or runs['cuda'][5] <= 1:
             failures.append(f'tail room at spp {spp}: the card and the CPU '
                             f'disagree, or level 1 took one round per band')
+
+    run_probes(launches, results, failures)
 
     loaded = sorted(m for m in sys.modules
                     if (m in ('jax', 'cuda_pathtracer_tpu')

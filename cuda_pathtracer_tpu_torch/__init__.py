@@ -6,6 +6,6 @@ port imports ``torch`` and numpy, never ``jax``, and nothing of
 needs (``constants.py``, ``accel/``, ``core/transforms.py``,
 ``scene/objloader.py``, ``scene/procedural.py``). The four kernels of the
 render path are hand-written CUDA under ``csrc/``, built with ``nvcc`` at
-first use (``ops/kernels.py``). ``python -m cuda_pathtracer_tpu_torch`` is
-the headless CLI.
+first use (``ops/kernels.py``), as are the four probe kernels of ``tools/``.
+``python -m cuda_pathtracer_tpu_torch`` is the headless CLI.
 """

@@ -34,7 +34,8 @@ BUILD_DIR = os.path.join(_PKG, '_build')
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-O3', '-std=c++17',
               '-Xcompiler', '-fPIC', '-fmad=false', '-Xptxas', '-v']
 
-NAMES = ('traverse', 'guiding_scatter', 'blur', 'traverse_packet')
+NAMES = ('traverse', 'guiding_scatter', 'blur', 'traverse_packet',
+         'probe_gather', 'probe_slab', 'probe_step', 'probe_onehot')
 LAUNCHES = dict.fromkeys(NAMES, 0)
 PLAIN_ON_CUDA = dict.fromkeys(NAMES, 0)
 
@@ -50,6 +51,10 @@ _SIGNATURES = {
     'cpt_blur': (_I, [_P, _P, _F, _P, _I, _I, _P, _P, _P]),
     'cpt_traverse_packet': (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                  _P, _P, _P, _P]),
+    'cpt_probe_gather': (_I, [_I, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    'cpt_probe_slab': (_I, [_I, _P, _P, _I, _I, _P]),
+    'cpt_probe_step': (_I, [_P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    'cpt_probe_onehot': (_I, [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
     'cpt_traverse_max_stack': (_I, []),
     'cpt_traverse_packet_max_stack': (_I, []),
     'cpt_error_string': (ctypes.c_char_p, [_I]),

@@ -18,6 +18,8 @@ from cuda_pathtracer_tpu_torch.ops import traverse_packet as tp1
 from cuda_pathtracer_tpu_torch.ops import traverse_packet2 as tp2
 from cuda_pathtracer_tpu_torch.ops.traverse import _primitives_prepass
 from cuda_pathtracer_tpu_torch.scene import builder, scene as scene_mod
+from cuda_pathtracer_tpu_torch.tools import (bf16_probe, gather_probe,
+                                             onehot_probe, step_probe)
 
 pytestmark = pytest.mark.cuda
 
@@ -203,3 +205,89 @@ def test_tail_schedule_matches_cpu(dev, monkeypatch, spp):
     close = torch.isclose(card[:, :3], cpu[:, :3], rtol=1e-3,
                           atol=1e-5).all(dim=1).float().mean()
     assert close >= 0.99
+
+
+def _rand_rows(n, w, seed):
+    rs = np.random.RandomState(seed)
+    return (rs.rand(n, w).astype(np.float32),
+            rs.randint(0, n, 40).astype(np.int32))
+
+
+_tab6, _idx6 = _rand_rows(50, 6, 4)
+GATHER_CARD_CASES = [c[1:] for c in gather_probe.sites(small=True)] + [
+    ('rows, width 6', gather_probe.ROWS, _tab6, _idx6, 0),
+    ('row sum, width 6', gather_probe.ROWSUM, _tab6, _idx6, 0),
+    ('row pair, width 6', gather_probe.ROWPAIR, _tab6,
+     _idx6.reshape(2, 20).copy(), 0)]
+
+
+@pytest.mark.parametrize('case', GATHER_CARD_CASES,
+                         ids=[c[0] for c in GATHER_CARD_CASES])
+def test_probe_gather_kernel_matches_plain(dev, case):
+    """Every mode of csrc/probe_gather.cu, float4 rows and widths that are
+    not a multiple of 4: bit for bit."""
+    _, mode, tab, idx, steps = case
+    t, i = torch.as_tensor(tab, device=dev), torch.as_tensor(idx, device=dev)
+    before = kernels.LAUNCHES['probe_gather']
+    got = gather_probe.gather(mode, t, i, steps)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES['probe_gather'] == before + 1
+    want = gather_probe.gather_ref(mode, t, i, steps)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize('label', list(bf16_probe.VARIANTS))
+def test_probe_slab_kernel_matches_plain(dev, label):
+    """The slab chain in f32, bf16x2 and widened bf16: bit for bit."""
+    v = bf16_probe.VARIANTS[label]
+    x = torch.as_tensor(bf16_probe.inputs(4), device=dev)
+    if v != bf16_probe.F32:
+        x = x.to(torch.bfloat16)
+    before = kernels.LAUNCHES['probe_slab']
+    got = bf16_probe.slab(v, x, 200)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES['probe_slab'] == before + 1
+    want = bf16_probe.slab_ref(v, x, 200)
+    bits = torch.int32 if v == bf16_probe.F32 else torch.int16
+    assert torch.equal(got.view(bits), want.view(bits))
+
+
+STEP_CARD_CASES = step_probe.cases(small=True)
+
+
+@pytest.mark.parametrize('case', STEP_CARD_CASES,
+                         ids=[f'{c[0]}-{c[1]}-T{c[5]}' for c in STEP_CARD_CASES])
+def test_probe_step_kernel_matches_plain(dev, case):
+    """Every toggle and chain count of csrc/probe_step.cu: bit for bit."""
+    _, _, flags, ni, batched, t = case
+    tab, rays = (torch.as_tensor(a, device=dev) for a in step_probe.inputs(16))
+    before = kernels.LAUNCHES['probe_step']
+    got = step_probe.step(tab, rays, t, flags, ni, batched)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES['probe_step'] == before + 1
+    want = step_probe.step_ref(tab, rays, t, flags, ni, batched)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+ONEHOT_CARD_CASES = [(path, c) for c in onehot_probe.cases(small=True)
+                     for path in onehot_probe.PATHS]
+
+
+@pytest.mark.parametrize('path,case', ONEHOT_CARD_CASES,
+                         ids=[f'{p}-{c[0]}-N{c[1]}-{"bf16" if c[2] else "f32"}'
+                              f'-P{c[4]}' for p, c in ONEHOT_CARD_CASES])
+def test_probe_onehot_kernel_matches_plain(dev, path, case):
+    """Both fetch paths (one-hot mma.sync, direct load) on f32 and bf16
+    tables: final indices and sums bit for bit."""
+    site, n, bf16, cells, chains = case
+    tab, idx = onehot_probe.case_inputs(site, n, cells, chains)
+    table = onehot_probe.Table(torch.as_tensor(tab, device=dev), bf16)
+    starts = onehot_probe.starts_of(site, torch.as_tensor(idx, device=dev),
+                                    cells, chains)
+    before = kernels.LAUNCHES['probe_onehot']
+    cur, acc = onehot_probe.fetch(path, table, starts, 16)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES['probe_onehot'] == before + 1
+    pcur, pacc = onehot_probe.fetch_ref(table, starts, 16)
+    assert torch.equal(cur, pcur)
+    assert torch.equal(acc.view(torch.int32), pacc.view(torch.int32))

@@ -1,8 +1,9 @@
 """The port runs without JAX and without the JAX package: in a fresh
 interpreter where ``import jax`` fails, import the port, build the small
 room, render 16x8 on the CPU, run the port's CLI on ``outside`` at 16x8 on
-the CPU, and check that no module of jax or of ``cuda_pathtracer_tpu`` was
-loaded. A scan of the port's sources and ``chip_smoke.py`` finds no import
+the CPU, run the four probe modules of ``cuda_pathtracer_tpu_torch/tools``
+on their plain versions, and check that no module of jax or of
+``cuda_pathtracer_tpu`` was loaded. A scan of the port's sources and ``chip_smoke.py`` finds no import
 of ``cuda_pathtracer_tpu``."""
 import os
 import re
@@ -34,6 +35,14 @@ rc = main(['--scene', 'outside', '--width', '16', '--height', '8', '--spp',
            '1', '--device', 'cpu', '--out', OUT + '/o.png', '--state',
            OUT + '/s.txt'])
 assert rc == 0 and os.path.getsize(OUT + '/o.png') > 0
+import contextlib, io
+from cuda_pathtracer_tpu_torch.tools import (bf16_probe, gather_probe,
+                                             onehot_probe, step_probe)
+for probe in (gather_probe, bf16_probe, step_probe, onehot_probe):
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        assert probe.main(['--device', 'cpu']) == 0, probe.__name__
+    assert 'ok=True' in text.getvalue(), text.getvalue()
 loaded = sorted(m for m in sys.modules
                 if (m in ('jax', 'cuda_pathtracer_tpu')
                     or m.startswith(('jax.', 'jaxlib', 'cuda_pathtracer_tpu.')))
