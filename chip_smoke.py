@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Builds the eight hand-written CUDA kernels from ``cuda_pathtracer_tpu_torch/
+Builds the twelve hand-written CUDA kernels from ``cuda_pathtracer_tpu_torch/
 csrc`` and drives the port's two render paths once at full size, then the
 four probe kernels' sweeps:
 
@@ -42,13 +42,16 @@ the wrapper's host time); each kernel's bound is the larger of its bytes over
 inputs (for the traversals, the node and leaf visits of the plain walks).
 
 3. the ``tools`` probes (``cuda_pathtracer_tpu_torch/tools/``), the Hopper
-   counterparts of 14 Pallas probes under the repo's ``tools/``: each
+   counterparts of all 23 Pallas sites under the repo's ``tools/``: each
    module's ``probe`` runs the TPU probe's own sweep through its kernel
    (row gathers, the bf16 slab chain, the scripted packet step, the one-hot
-   fetch) with the counts set to 0 just before; every case is then held to
-   its plain version bit for bit, and one answer line per probe is printed
-   with its Hopper question's table (dependent row reads by table size,
-   SASS counts, ns per step, ns per lane-step).
+   fetch; then the TPU packet step, the decision round trip, the visit
+   anatomy and the v1 packet-walk lab on sibenik's waves) with the counts
+   set to 0 just before; every case is then held to its plain version bit
+   for bit (digests of the decision words included), and one answer line
+   per probe is printed with its Hopper question's table (dependent row
+   reads by table size, SASS counts, ns per step, visit or packet-step,
+   the walk beside the port's traversals on the same rays).
 
 Prints the card's name and power limit, the build time, per-phase lines,
 then one JSON line of per-kernel results, the card line, and as its last line
@@ -93,6 +96,17 @@ KERNELS = {
                      'tools/pallas_probe_onehot.py:63, '
                      'tools/pallas_probe_onehot2.py:74, '
                      'tools/pallas_probe_onehot3.py:68'),
+    'probe_packet_step': ('cuda_pathtracer_tpu_torch/csrc/probe_packet_step.cu',
+                          'tools/pallas_probe_r2f.py:96, '
+                          'tools/pallas_probe_r2g.py:158, '
+                          'tools/pallas_probe_r2h.py:172, '
+                          'tools/pallas_probe_r2i.py:68'),
+    'probe_decision': ('cuda_pathtracer_tpu_torch/csrc/probe_decision.cu',
+                       'tools/kernel_lab2.py:136, tools/mosaic_bisect.py:166'),
+    'probe_visit': ('cuda_pathtracer_tpu_torch/csrc/probe_visit.cu',
+                    'tools/kernel_lab3.py:487, tools/subpacket_probe.py:295'),
+    'probe_packet_walk': ('cuda_pathtracer_tpu_torch/csrc/probe_packet_walk.cu',
+                          'tools/kernel_lab.py:256'),
 }
 # the kernels each path must launch
 SIBENIK_KERNELS = ('traverse', 'guiding_scatter', 'blur')
@@ -172,11 +186,16 @@ def run_probes(launches: dict, results: dict, failures: list):
     ``results`` and appends to ``failures``."""
     import torch
     from cuda_pathtracer_tpu_torch.ops import kernels
-    from cuda_pathtracer_tpu_torch.tools import (bf16_probe, gather_probe,
-                                                 onehot_probe, step_probe)
+    from cuda_pathtracer_tpu_torch.tools import (
+        bf16_probe, decision_probe, gather_probe, lab_v1_probe, onehot_probe,
+        packet_step_probe, step_probe, visit_probe)
     for name, mod in (('probe_gather', gather_probe), ('probe_slab', bf16_probe),
                       ('probe_step', step_probe),
-                      ('probe_onehot', onehot_probe)):
+                      ('probe_onehot', onehot_probe),
+                      ('probe_packet_step', packet_step_probe),
+                      ('probe_decision', decision_probe),
+                      ('probe_visit', visit_probe),
+                      ('probe_packet_walk', lab_v1_probe)):
         t = time.perf_counter()
         kernels.reset_counts()
         rows = mod.probe('cuda')
@@ -189,9 +208,11 @@ def run_probes(launches: dict, results: dict, failures: list):
             failures.append(f'{name}: {plain} plain versions on CUDA in its '
                             f'probe sweep')
         rows = mod.compare(rows)
-        bad = [r.get('site', r.get('label')) for r in rows if not r['equal']]
+        bad = [r.get('label', r.get('site')) for r in rows if not r['equal']]
         if bad:
             failures.append(f'{name}: kernel disagrees with plain on {bad}')
+        if mod is lab_v1_probe:
+            failures += lab_v1_checks(rows)
         if mod is gather_probe:
             lines = [gather_probe.site_line(r) for r in rows]
             lines += gather_probe.hopper_question()
@@ -202,6 +223,24 @@ def run_probes(launches: dict, results: dict, failures: list):
         results[name] = mod.summary(rows)
         log(f'{mod.answer(rows)} | {launches[name]} launches, '
             f'{time.perf_counter() - t:.1f} s')
+
+
+def lab_v1_checks(rows):
+    """The packet-walk lab's own checks: v0, packed and phase give the same
+    t ([MATCH]); the walk's t differs from the port's v1 traversal on the
+    same rays on at most 0.1% of its hits (exact ties between triangles)."""
+    out = []
+    for r in rows:
+        if r.get('match') is False:
+            out.append(f"probe_packet_walk {r['label']}: t differs from v0 "
+                       f"([MISMATCH])")
+        if r['variant'] == 'v0':
+            hits = int(r['out']['out'].view(-1, 4, 128)[:, 2].sum())
+            if r['traverse_split_t_diff'] > 0.001 * max(hits, 1):
+                out.append(f"probe_packet_walk {r['wave']}: t differs from "
+                           f"traverse_split on {r['traverse_split_t_diff']} "
+                           f"of {hits} hits")
+    return out
 
 
 def run_cli(main, args, packet_v1: bool):

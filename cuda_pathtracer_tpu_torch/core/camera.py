@@ -80,3 +80,15 @@ def generate_rays(cam: Camera, xs, ys, seeds, width: int, height: int):
     direction = torch.where(flip[..., None], -direction, direction)
     origin = origin - correction[..., None] * direction
     return origin, direction, rand_state
+
+
+def generate_rays_simple(cam: Camera, xs, ys, width: int, height: int):
+    """Jitter-free pinhole rays, Camera::getRay(x, y) (src/types.h:660-667):
+    the rays of the Whitted mode and of click-to-focus. Returns (origin[...,
+    3], direction[..., 3])."""
+    xf = xs.to(torch.float32) / width
+    yf = ys.to(torch.float32) / height
+    lt, u, v = basis(cam, width, height)
+    point = _distort(cam, lt + xf[..., None] * u + yf[..., None] * v)
+    direction = vm.normalize(point - cam.eye)
+    return cam.eye.expand(direction.shape), direction

@@ -35,7 +35,9 @@ NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-O3', '-std=c++17',
               '-Xcompiler', '-fPIC', '-fmad=false', '-Xptxas', '-v']
 
 NAMES = ('traverse', 'guiding_scatter', 'blur', 'traverse_packet',
-         'probe_gather', 'probe_slab', 'probe_step', 'probe_onehot')
+         'probe_gather', 'probe_slab', 'probe_step', 'probe_onehot',
+         'probe_packet_step', 'probe_decision', 'probe_visit',
+         'probe_packet_walk')
 LAUNCHES = dict.fromkeys(NAMES, 0)
 PLAIN_ON_CUDA = dict.fromkeys(NAMES, 0)
 
@@ -55,6 +57,14 @@ _SIGNATURES = {
     'cpt_probe_slab': (_I, [_I, _P, _P, _I, _I, _P]),
     'cpt_probe_step': (_I, [_P, _P, _P, _I, _I, _I, _I, _I, _P]),
     'cpt_probe_onehot': (_I, [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    # (site, variant, steps, input pointers, output pointers, table rows,
+    # rows of a second table or programs, stream)
+    'cpt_probe_packet_step': (_I, [_I, _I, _I, _P, _P, _I, _I, _P]),
+    'cpt_probe_decision': (_I, [_I, _I, _I, _P, _P, _I, _I, _P]),
+    'cpt_probe_visit': (_I, [_I, _I, _I, _P, _P, _I, _I, _P]),
+    # (variant, input pointers, output pointers, inner rows, leaf rows,
+    # programs, stack capacity, stream)
+    'cpt_probe_packet_walk': (_I, [_I, _P, _P, _I, _I, _I, _I, _P]),
     'cpt_traverse_max_stack': (_I, []),
     'cpt_traverse_packet_max_stack': (_I, []),
     'cpt_error_string': (ctypes.c_char_p, [_I]),

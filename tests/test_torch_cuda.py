@@ -18,8 +18,10 @@ from cuda_pathtracer_tpu_torch.ops import traverse_packet as tp1
 from cuda_pathtracer_tpu_torch.ops import traverse_packet2 as tp2
 from cuda_pathtracer_tpu_torch.ops.traverse import _primitives_prepass
 from cuda_pathtracer_tpu_torch.scene import builder, scene as scene_mod
-from cuda_pathtracer_tpu_torch.tools import (bf16_probe, gather_probe,
-                                             onehot_probe, step_probe)
+from cuda_pathtracer_tpu_torch.tools import (bf16_probe, decision_probe,
+                                             gather_probe, lab_v1_probe,
+                                             onehot_probe, packet_step_probe,
+                                             step_probe, visit_probe)
 
 pytestmark = pytest.mark.cuda
 
@@ -291,3 +293,64 @@ def test_probe_onehot_kernel_matches_plain(dev, path, case):
     pcur, pacc = onehot_probe.fetch_ref(table, starts, 16)
     assert torch.equal(cur, pcur)
     assert torch.equal(acc.view(torch.int32), pacc.view(torch.int32))
+
+
+PACKET_CARD_CASES = [(packet_step_probe, c) for c in
+                     packet_step_probe.cases(small=True)] + [
+    (decision_probe, c) for c in decision_probe.cases(small=True)] + [
+    (visit_probe, c) for c in visit_probe.cases(small=True)]
+
+
+def _packet_inputs(mod, site, variant, dev):
+    if mod is packet_step_probe:
+        return {k: torch.as_tensor(v, device=dev)
+                for k, v in mod.inputs(site, variant, small=True).items()}
+    if mod is visit_probe:
+        return mod.case_inputs(site, True, dev)
+    return {k: torch.as_tensor(v, device=dev)
+            for k, v in mod.inputs(site, small=True).items()}
+
+
+@pytest.mark.parametrize('mod,case', PACKET_CARD_CASES,
+                         ids=[f'{m.NAME}-{c[0]}-{c[1]}-T{c[2]}'
+                              for m, c in PACKET_CARD_CASES])
+def test_probe_packet_kernels_match_plain(dev, mod, case):
+    """csrc/probe_packet_step.cu, probe_decision.cu and probe_visit.cu, every
+    site and variant at the CPU tests' sizes: outputs, scratch and digests
+    bit for bit."""
+    site, variant, t = case[:3]
+    ins = _packet_inputs(mod, site, variant, dev)
+    before = kernels.LAUNCHES[mod.NAME]
+    got = mod.run(site, variant, t, ins, *case[3:])
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[mod.NAME] == before + 1
+    want = mod.run_ref(site, variant, t, ins, *case[3:])
+    assert got.keys() == want.keys()
+    for k in got:
+        a, b = got[k], want[k]
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a.long(), b.long()), k
+
+
+@pytest.fixture(scope='module')
+def lab_setup(dev):
+    return lab_v1_probe.setup('cuda', small=True)
+
+
+@pytest.mark.parametrize('wave,variant', lab_v1_probe.cases())
+def test_probe_packet_walk_matches_plain(dev, lab_setup, wave, variant):
+    """csrc/probe_packet_walk.cu, every hook on both small waves: outputs,
+    stacks, words and both digests bit for bit."""
+    tb = lab_setup['tables']
+    blocks = lab_setup['blocks'][wave]
+    before = kernels.LAUNCHES['probe_packet_walk']
+    got = lab_v1_probe.walk(tb.inner, tb.leaf, blocks, tb.depth, variant)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES['probe_packet_walk'] == before + 1
+    want = lab_v1_probe.walk_ref(tb.inner, tb.leaf, blocks, tb.depth, variant)
+    for k in got:
+        a, b = got[k], want[k]
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a.long(), b.long()), k

@@ -1,8 +1,9 @@
 """The port runs without JAX and without the JAX package: in a fresh
 interpreter where ``import jax`` fails, import the port, build the small
 room, render 16x8 on the CPU, run the port's CLI on ``outside`` at 16x8 on
-the CPU, run the four probe modules of ``cuda_pathtracer_tpu_torch/tools``
-on their plain versions, and check that no module of jax or of
+the CPU, run the eight probe modules of ``cuda_pathtracer_tpu_torch/tools``
+on their plain versions (``lab_v1_probe`` builds its scene and waves with
+the port alone), and check that no module of jax or of
 ``cuda_pathtracer_tpu`` was loaded. A scan of the port's sources and ``chip_smoke.py`` finds no import
 of ``cuda_pathtracer_tpu``."""
 import os
@@ -36,9 +37,11 @@ rc = main(['--scene', 'outside', '--width', '16', '--height', '8', '--spp',
            OUT + '/s.txt'])
 assert rc == 0 and os.path.getsize(OUT + '/o.png') > 0
 import contextlib, io
-from cuda_pathtracer_tpu_torch.tools import (bf16_probe, gather_probe,
-                                             onehot_probe, step_probe)
-for probe in (gather_probe, bf16_probe, step_probe, onehot_probe):
+from cuda_pathtracer_tpu_torch.tools import (
+    bf16_probe, decision_probe, gather_probe, lab_v1_probe, onehot_probe,
+    packet_step_probe, step_probe, visit_probe)
+for probe in (gather_probe, bf16_probe, step_probe, onehot_probe,
+              packet_step_probe, decision_probe, visit_probe, lab_v1_probe):
     text = io.StringIO()
     with contextlib.redirect_stdout(text):
         assert probe.main(['--device', 'cpu']) == 0, probe.__name__
