@@ -32,7 +32,7 @@
 // local stack frame (48 x 8 bytes, cached in L1): all 16 lanes push and pop
 // the same entries, so no lane waits on another. The top entry lives in
 // registers; popping a sibling only clears a bit of it. Measured on an H100
-// with utils/traverse_ab.py: one copy per group in shared memory, written by
+// with utils/kernel_ab.py: one copy per group in shared memory, written by
 // lane 0 between two __syncwarp, ran 1-8% slower per wave; staging rows 0-16
 // (the root and its children) in shared memory per block by one bulk async
 // copy ran 3-33% slower. ptxas: 51 registers, a 384-byte stack frame, no

@@ -42,7 +42,7 @@
 // (row, visited-mask) pairs in its local stack frame (64 x 8 bytes, cached
 // in L1): all 16 lanes push and pop the same entries, so no lane waits on
 // another (one shared copy written by lane 0 between two __syncwarp measured
-// slower on an H100, utils/traverse_ab.py). ptxas: 43 registers, a 512-byte
+// slower on an H100, utils/kernel_ab.py). ptxas: 43 registers, a 512-byte
 // stack frame, no spills.
 //
 // The hazards of traverse.cu hold here too: empty slots are NaN boxes (NaN-

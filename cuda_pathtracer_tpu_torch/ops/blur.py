@@ -8,8 +8,9 @@ exp(-i^2 * 0.5 * spread) / sqrt(2 pi), spread = max(0.7, n / 200), each pass
 renormalised over the taps that fall inside the frame.
 
 :func:`blur_luminance` launches ``csrc/blur.cu`` on CUDA tensors, at any
-frame size; :func:`blur_luminance_ref` is the plain version, used on the CPU
-and as the kernel's reference on the card.
+frame size: one launch of shared-memory tiles, no scratch image;
+:func:`blur_luminance_ref` is the plain version, used on the CPU and as the
+kernel's reference on the card.
 """
 from __future__ import annotations
 
@@ -66,7 +67,9 @@ def blur_luminance_ref(lum, alb, n_samples: float, width: int, height: int):
 
 def blur_luminance(lum, alb, n_samples: float, width: int, height: int):
     """:func:`blur_luminance_ref`'s contract. CPU tensors take the plain
-    version; CUDA tensors launch the two-pass stencil kernel (or raise)."""
+    version; CUDA tensors launch the stencil kernel (or raise). The kernel
+    reads each pixel's accumulators as one 16-byte load, so both must start
+    on a 16-byte boundary."""
     if lum.device.type == 'cpu':
         return blur_luminance_ref(lum, alb, n_samples, width, height)
     kernels.require_cuda('blur', lum, alb,
@@ -74,14 +77,15 @@ def blur_luminance(lum, alb, n_samples: float, width: int, height: int):
     npx = width * height
     if lum.shape != (npx, 4) or alb.shape != (npx, 4):
         raise ValueError(f'blur: accumulators must be [{npx}, 4]')
+    if lum.data_ptr() % 16 or alb.data_ptr() % 16:
+        raise ValueError('blur: accumulators must be 16-byte aligned')
     w = (ctypes.c_float * 15)(*blur_weights(n_samples).tolist())
-    tmp = torch.empty((npx, 3), dtype=torch.float32, device=lum.device)
     out = torch.empty((npx, 3), dtype=torch.float32, device=lum.device)
     if npx:
         lib = kernels.library()
         err = lib.cpt_blur(lum.data_ptr(), alb.data_ptr(), float(n_samples),
                            ctypes.cast(w, ctypes.c_void_p), width, height,
-                           tmp.data_ptr(), out.data_ptr(),
+                           out.data_ptr(),
                            kernels.stream_of(lum))
         kernels.LAUNCHES['blur'] += 1
         kernels.check(err, 'blur')

@@ -2,10 +2,12 @@
 ``cuda_pathtracer_tpu/ops/guiding_scatter.py``; kernel_update_buckets,
 src/kernels.h:863-882).
 
-:func:`segment_sum_pairs` launches ``csrc/guiding_scatter.cu`` (one
-``atomicAdd`` pair per update) on CUDA tensors; :func:`segment_sum_pairs_ref`
-is the plain ``index_add_`` version, used on the CPU and as the kernel's
-reference on the card.
+:func:`segment_sum_pairs` launches ``csrc/guiding_scatter.cu`` on CUDA
+tensors: one interleaved (energy, weight) table, zeroed by one memset, and
+one kernel of ``int4`` id loads, warp-aggregated ``float2`` atomics;
+:func:`segment_sum_pairs_ref` is the plain ``index_add_`` version, used on
+the CPU and as the kernel's reference on the card. Both return the two
+columns of one f32 [n_bins, 2] table, as strided views.
 """
 from __future__ import annotations
 
@@ -27,7 +29,7 @@ def segment_sum_pairs_ref(val_e, val_w, seg, n_bins: int):
 
 def segment_sum_pairs(val_e, val_w, seg, n_bins: int):
     """:func:`segment_sum_pairs_ref`'s contract. CPU tensors take the plain
-    version; CUDA tensors launch the atomicAdd kernel (or raise)."""
+    version; CUDA tensors launch the kernel (or raise)."""
     if val_e.device.type == 'cpu':
         return segment_sum_pairs_ref(val_e, val_w, seg, n_bins)
     kernels.require_cuda('guiding_scatter', val_e, val_w, seg,
@@ -35,14 +37,12 @@ def segment_sum_pairs(val_e, val_w, seg, n_bins: int):
     n = val_e.shape[0]
     if val_e.dim() != 1 or val_w.shape != (n,) or seg.shape != (n,):
         raise ValueError('guiding_scatter: inputs must be three [L] vectors')
-    # zero-filled: the kernel accumulates into them
-    sum_e = torch.zeros(n_bins, dtype=torch.float32, device=val_e.device)
-    sum_w = torch.zeros(n_bins, dtype=torch.float32, device=val_e.device)
+    # the C entry zeroes the table, then (with updates) adds them into it
+    table = torch.empty((n_bins, 2), dtype=torch.float32, device=val_e.device)
+    err = kernels.library().cpt_guiding_scatter(
+        val_e.data_ptr(), val_w.data_ptr(), seg.data_ptr(), n, n_bins,
+        table.data_ptr(), kernels.stream_of(val_e))
     if n:
-        lib = kernels.library()
-        err = lib.cpt_guiding_scatter(
-            val_e.data_ptr(), val_w.data_ptr(), seg.data_ptr(), n, n_bins,
-            sum_e.data_ptr(), sum_w.data_ptr(), kernels.stream_of(val_e))
         kernels.LAUNCHES['guiding_scatter'] += 1
-        kernels.check(err, 'guiding_scatter')
-    return sum_e, sum_w
+    kernels.check(err, 'guiding_scatter')
+    return table[:, 0], table[:, 1]

@@ -49,8 +49,8 @@ _F = ctypes.c_float
 _SIGNATURES = {
     'cpt_traverse': (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P,
                           _P, _P]),
-    'cpt_guiding_scatter': (_I, [_P, _P, _P, _I, _I, _P, _P, _P]),
-    'cpt_blur': (_I, [_P, _P, _F, _P, _I, _I, _P, _P, _P]),
+    'cpt_guiding_scatter': (_I, [_P, _P, _P, _I, _I, _P, _P]),
+    'cpt_blur': (_I, [_P, _P, _F, _P, _I, _I, _P, _P]),
     'cpt_traverse_packet': (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                  _P, _P, _P, _P]),
     'cpt_probe_gather': (_I, [_I, _P, _P, _P, _I, _I, _I, _I, _I, _P]),

@@ -4,7 +4,8 @@
 
 Profiles, with ``torch.profiler``, one clearing frame of the CLI's animated
 path (the ``outside`` scene at 1920x1080, ``Scene.update`` at t = 5 so the
-frame refits the moved cubes, 5 samples of at most 5 bounces, NEE) and one
+frame refits the moved cubes, 5 samples of at most 5 bounces, NEE, and the
+blurred display image of ``--blur``) and one
 converge sample of the sibenik path (1920x1080, 32 bounces). ``--v1``
 traces with the split-table kernel; ``--one-band`` renders each frame as one
 band (the lane cap raised to the frame) instead of the engine's default
@@ -47,9 +48,10 @@ from ..scene.builder import get_scene
 
 WIDTH, HEIGHT = 1920, 1080
 MAIN = 0   # the part key of the full-width bounces before the tail
-# the __global__ functions of csrc/, as the profiler names them
+# the __global__ functions of csrc/ on the render path, as the profiler
+# names them
 PORT_KERNELS = ('traverse_kernel', 'traverse_packet_kernel',
-                'guiding_scatter_kernel', 'blur_h_kernel', 'blur_v_kernel')
+                'guiding_scatter_kernel', 'blur_kernel')
 
 
 class ScheduleTap:
@@ -156,6 +158,20 @@ def _busy(spans, lo=float('-inf'), hi=float('inf')) -> tuple[float, int]:
     return busy, n
 
 
+def _scatter_memsets(events) -> tuple[float, int]:
+    """(us, count) of the memsets that zero the guiding scatter's table: the
+    device event just before each ``guiding_scatter_kernel``, when it is a
+    memset (the wrapper issues the two back to back on one stream)."""
+    dev = sorted((e.time_range.start, e.time_range.end, e.name)
+                 for e in events if _is_kernel(e))
+    total, n = 0.0, 0
+    for (s, t, prev), (_, _, name) in zip(dev, dev[1:]):
+        if 'guiding_scatter_kernel(' in name and prev.startswith('Memset'):
+            total += t - s
+            n += 1
+    return total, n
+
+
 def _parts(tap: ScheduleTap, events, spans):
     """Per (band, part): bounces, rounds, widths, live lanes, kernels, wall
     and busy us, summed over the dispatches of the profiled work."""
@@ -233,13 +249,19 @@ def _report(name: str, work, top: int = 8):
         print(f'  {r.device_time_total / 1e3:9.2f} ms {r.count:6d} x  '
               f'{r.key[:90]}')
     ours = [(name, r) for r in rows for name in PORT_KERNELS
-             if name + '(' in r.key]
+            if name + '(' in r.key]
     trav = sum(r.device_time_total for name, r in ours
                if name.startswith('traverse')) / 1e3
     print('  the port\'s kernels: ' + '; '.join(
         f'{name} {r.device_time_total / 1e3:.3f} ms over {r.count}'
         for name, r in ours) + f'; traverse* {trav:.3f} ms of {busy:.1f} ms '
         f'busy')
+    memsets = [r for r in rows if r.key.startswith('Memset')]
+    scat_us, scat_n = _scatter_memsets(prof.events())
+    print(f'  the guiding scatter\'s table memsets {scat_us / 1e3:.3f} ms over '
+          f'{scat_n}; all memsets of the frame '
+          f'{sum(r.device_time_total for r in memsets) / 1e3:.3f} ms over '
+          f'{sum(r.count for r in memsets)}')
 
     tap = ScheduleTap(mark=True)
     wall, prof = _profiled(work, tap)
@@ -283,7 +305,9 @@ def main(argv=None) -> int:
     def outside_frame():
         scene.update(None, 5.0)
         pt.render(cam, 5.0, 0.0, should_clear=True)
-    _report('outside clearing frame (refit + 5 samples x 5 bounces)',
+        pt.image(blur=True)
+    _report('outside clearing frame (refit + 5 samples x 5 bounces + the '
+            'blurred image)',
             outside_frame)
 
     scene = get_scene('sibenik')

@@ -144,27 +144,107 @@ def test_traversal_kernels_on_hard_cases(dev, hard_cases, walk):
             assert torch.equal(a, b), k
 
 
-def test_guiding_scatter_kernel_matches_plain(dev):
+def _scatter_case(case):
+    """(e, w, seg, n_bins) on the CPU for a card case of the scatter."""
     rs = np.random.RandomState(1)
     L, n_bins = 300000, 50000
-    seg = torch.as_tensor(np.where(rs.rand(L) < 0.5, rs.randint(0, n_bins, L),
-                                   n_bins).astype(np.int32), device=dev)
-    e = torch.as_tensor(rs.rand(L).astype(np.float32) * 50, device=dev)
-    w = (seg < n_bins).to(torch.float32)
+    if case == 'half kept':
+        seg = np.where(rs.rand(L) < 0.5, rs.randint(0, n_bins, L), n_bins)
+    elif case == 'all discarded':
+        seg = np.full(L, n_bins)
+    elif case == 'one bin':
+        # every update on one bin: the warp aggregation under full contention
+        seg = np.full(L, 4321)
+    elif case == 'ragged':
+        L = 1001    # not a multiple of 4
+        seg = np.where(rs.rand(L) < 0.7, rs.randint(0, 7, L), 7)
+        n_bins = 7
+    elif case == 'one bin table':
+        n_bins = 1
+        seg = rs.randint(0, 2, L)
+    else:
+        # the sibenik band's size: 3 x 414,720 updates in 8x16 tile lane
+        # order into 164,620 x 8 bins; runs of 16 lanes share a triangle,
+        # about a tenth of the records are kept
+        n_tris, lanes = 164620, 414720
+        L, n_bins = 3 * lanes, n_tris * 8
+        tri = np.repeat(rs.randint(0, n_tris, L // 16), 16)
+        seg = np.where(rs.rand(L) < 0.1, tri * 8 + rs.randint(0, 8, L),
+                       n_bins)
+    seg = seg.astype(np.int32)
+    # discarded updates carry energy and weight too: the kernel must drop
+    # their values, not only their ids
+    e = (rs.rand(L) * 50).astype(np.float32)
+    if case == 'one bin':
+        # whole energies: the one bin's sum is exact in any order
+        e = rs.randint(0, 50, L).astype(np.float32)
+    w = np.where(seg < n_bins, 1.0, rs.rand(L) + 0.5).astype(np.float32)
+    return e, w, seg, n_bins
+
+
+@pytest.mark.parametrize('case', ['half kept', 'all discarded', 'one bin',
+                                  'ragged', 'one bin table', 'sibenik band',
+                                  'misaligned'])
+def test_guiding_scatter_kernel_matches_plain(dev, case):
+    """The kernel's sums against index_add_'s at rtol 1e-5 / atol 1e-5 (the
+    atomics add in another order); 'misaligned' starts the ids 4 bytes past
+    a 16-byte boundary, so the first thread's line is read id by id."""
+    e, w, seg, n_bins = _scatter_case('half kept' if case == 'misaligned'
+                                      else case)
+    e, w, seg = (torch.as_tensor(a, device=dev) for a in (e, w, seg))
+    if case == 'misaligned':
+        e, w, seg = e[1:], w[1:], seg[1:]
+        assert seg.data_ptr() % 16 == 4
     ke, kw = guiding_scatter.segment_sum_pairs(e, w, seg, n_bins)
     pe, pw = guiding_scatter.segment_sum_pairs_ref(e, w, seg, n_bins)
+    assert ke.shape == kw.shape == (n_bins,)
     assert torch.allclose(ke, pe, rtol=1e-5, atol=1e-5)
     assert torch.allclose(kw, pw, rtol=1e-5, atol=1e-5)
+    if case == 'one bin':
+        assert float(kw[4321]) == seg.shape[0]
+        assert float(ke[4321]) == float(e.sum())
+    if case == 'all discarded':
+        assert not ke.any() and not kw.any()
 
 
-@pytest.mark.parametrize('W,H,n', [(1920, 1080, 5.0), (37, 19, 300.0)])
+@pytest.mark.parametrize('W,H,n', [(1920, 1080, 5.0), (37, 19, 300.0),
+                                   (1, 1, 3.0), (2, 3, 7.0), (7, 5, 12.0)])
 def test_blur_kernel_matches_plain(dev, W, H, n):
+    """Bit for bit, at 1080p, at a size that leaves ragged tiles, and at
+    frames smaller than the 7 x 8 halo."""
     g = torch.Generator(device=dev).manual_seed(2)
     lum = torch.rand((W * H, 4), device=dev, generator=g) * n
     alb = torch.rand((W * H, 4), device=dev, generator=g)
+    alb[:5, 1] = 0.0     # the 0.001 albedo floor
     got = blur.blur_luminance(lum, alb, n, W, H)
     want = blur.blur_luminance_ref(lum, alb, n, W, H)
-    assert torch.allclose(got, want, rtol=1e-6, atol=0)
+    assert torch.isfinite(got).all()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize('name', ['guiding_scatter', 'blur'])
+def test_wrapper_launches_once_and_allocates_only_outputs(dev, name):
+    """One launch counted per call, and no device memory beyond the
+    outputs (the allocator rounds each block up to 512 bytes)."""
+    if name == 'guiding_scatter':
+        e, w, seg, n_bins = _scatter_case('half kept')
+        args = [torch.as_tensor(a, device=dev) for a in (e, w, seg)]
+        call = lambda: guiding_scatter.segment_sum_pairs(*args, n_bins)
+        out_bytes = n_bins * 8
+    else:
+        W, H = 333, 77
+        args = [torch.rand((W * H, 4), device=dev) + 0.1 for _ in range(2)]
+        call = lambda: blur.blur_luminance(*args, 9.0, W, H)
+        out_bytes = W * H * 12
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    before = kernels.LAUNCHES[name]
+    out = call()
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[name] == before + 1
+    assert torch.cuda.max_memory_allocated() - base == -(-out_bytes // 512) * 512
+    del out
 
 
 def test_room_render_matches_cpu(dev):

@@ -16,24 +16,28 @@ from cuda_pathtracer_tpu_torch.ops import blur as tb
 W, H = 40, 24
 
 
-def _accumulators(seed=0, n=12.0):
+def _accumulators(seed=0, n=12.0, w=W, h=H):
     rng = np.random.RandomState(seed)
-    lum = np.concatenate([rng.rand(H * W, 3).astype(np.float32) * n,
-                          np.full((H * W, 1), n, np.float32)], axis=1)
-    alb = np.concatenate([rng.rand(H * W, 3).astype(np.float32) * n + 0.1,
-                          np.full((H * W, 1), n, np.float32)], axis=1)
+    lum = np.concatenate([rng.rand(h * w, 3).astype(np.float32) * n,
+                          np.full((h * w, 1), n, np.float32)], axis=1)
+    alb = np.concatenate([rng.rand(h * w, 3).astype(np.float32) * n + 0.1,
+                          np.full((h * w, 1), n, np.float32)], axis=1)
     alb[:7, 1] = 0.0     # exercises the 0.001 albedo floor
     return lum, alb
 
 
-@pytest.mark.parametrize('n', [1.0, 12.0, 500.0])
-def test_blur_matches_pallas_and_xla(n):
-    lum, alb = _accumulators(n=n)
-    got = tb.blur_luminance(torch.as_tensor(lum), torch.as_tensor(alb), n, W, H)
+@pytest.mark.parametrize('n,w,h', [
+    pytest.param(n, w, h, id=f'{n}' + ('' if (w, h) == (W, H) else f'-{w}x{h}'))
+    for n, w, h in ((1.0, W, H), (12.0, W, H), (500.0, W, H), (3.0, 1, 1),
+                    (7.0, 2, 3), (12.0, 7, 5))])
+def test_blur_matches_pallas_and_xla(n, w, h):
+    """Also at frames smaller than the 7 x 8 halo (1x1, 2x3, 7x5)."""
+    lum, alb = _accumulators(n=n, w=w, h=h)
+    got = tb.blur_luminance(torch.as_tensor(lum), torch.as_tensor(alb), n, w, h)
     pallas = blur_luminance_pallas(jnp.asarray(lum), jnp.asarray(alb), n,
-                                   width=W, height=H, interpret=True)
-    xla = jf._blur_xla(jnp.asarray(lum), jnp.asarray(alb), n, W, H)
-    assert got.shape == (H * W, 3)
+                                   width=w, height=h, interpret=True)
+    xla = jf._blur_xla(jnp.asarray(lum), jnp.asarray(alb), n, w, h)
+    assert got.shape == (h * w, 3)
     for want in (pallas, xla):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
                                    atol=0)

@@ -15,19 +15,27 @@ from cuda_pathtracer_tpu_torch.ops import guiding_scatter as tgs
 from cuda_pathtracer_tpu_torch.ops import kernels
 
 
-def _updates(L, n_bins, seed):
+def _updates(L, n_bins, seed, dist='mixed'):
+    """(energy, weight, seg): 60% of the updates kept on random bins
+    ('mixed'), none kept ('discard') or all on bin 0 ('one bin')."""
     rng = np.random.default_rng(seed)
-    valid = rng.random(L) < 0.6
-    seg = np.where(valid, rng.integers(0, n_bins, L), n_bins).astype(np.int32)
+    valid = rng.random(L) < {'mixed': 0.6, 'discard': 0.0, 'one bin': 1.0}[dist]
+    ids = rng.integers(0, n_bins, L) if dist == 'mixed' else np.zeros(L, int)
+    seg = np.where(valid, ids, n_bins).astype(np.int32)
     e = np.where(valid, rng.random(L) * 100, 0.0).astype(np.float32)
     w = valid.astype(np.float32)
     return e, w, seg
 
 
-@pytest.mark.parametrize('L,n_bins,seed', [(3000, 4096, 0), (6144, 16000, 1),
-                                           (700, 24, 2)])
-def test_segment_sum_matches_jax(L, n_bins, seed):
-    e, w, seg = _updates(L, n_bins, seed)
+@pytest.mark.parametrize('L,n_bins,seed,dist', [
+    pytest.param(L, n_bins, seed, dist, id=f'{L}-{n_bins}-{seed}'
+                 + ('' if dist == 'mixed' else f'-{dist}'))
+    for L, n_bins, seed, dist in (
+        (3000, 4096, 0, 'mixed'), (6144, 16000, 1, 'mixed'),
+        (700, 24, 2, 'mixed'), (2050, 512, 6, 'discard'),
+        (1500, 1, 7, 'one bin'), (1027, 300, 8, 'one bin'))])
+def test_segment_sum_matches_jax(L, n_bins, seed, dist):
+    e, w, seg = _updates(L, n_bins, seed, dist)
     ge, gw = tgs.segment_sum_pairs(torch.as_tensor(e), torch.as_tensor(w),
                                    torch.as_tensor(seg), n_bins)
     pe, pw = jssp(jnp.asarray(e), jnp.asarray(w), jnp.asarray(seg),
