@@ -3,8 +3,8 @@
     python3 chip_smoke.py
 
 Builds the twelve hand-written CUDA kernels from ``cuda_pathtracer_tpu_torch/
-csrc`` and drives the port's two render paths once at full size, then the
-four probe kernels' sweeps:
+csrc`` and drives the port's render paths once at full size (phases 1-3),
+then the eight probe kernels' sweeps (phase 4):
 
 1. the converge path: the sibenik scene at 1920x1080, one clear frame, 4
    converge samples (32 bounces, NEE, guiding training) and the blurred
@@ -41,7 +41,26 @@ the wrapper's host time); each kernel's bound is the larger of its bytes over
 3.35 TB/s and its FP32 operations over 67 TFLOP/s, counted from this run's
 inputs (for the traversals, the node and leaf visits of the plain walks).
 
-3. the ``tools`` probes (``cuda_pathtracer_tpu_torch/tools/``), the Hopper
+3. the rest of the CLI: (a) the Whitted raytracer at 1920x1080: sibenik on
+   v2, a clearing frame (depth 2) and a converged one (depth 7); ``python -m
+   cuda_pathtracer_tpu_torch --scene outside --mode ray --width 1920
+   --height 1080 --time 5`` in this process with ``PACKET_V1`` on and then
+   off (one depth-2 frame after the refit), then one depth-7 frame on each
+   route; per frame the device ms (CUDA events) and host wall, lanes,
+   active lanes and lanes the cap dropped per level, the traversal launches
+   and their device ms (profiler), rays traced and Mrays/s; on each of the
+   three depth-7 frames the level-0 closest-hit and shadow waves (2,073,600
+   lanes) are recorded and traced again on the kernel and on its plain walk
+   (t, prim_id, prim_type bit-identical, ``hold_level0``); v1 and v2 must
+   agree on 99.5% of the pixels, and so must a 64x48 depth-7 outside frame
+   on the card and on the CPU. (b) ``--serve <a free port> --frames 30`` on
+   outside at 640x480, in path mode and in ray mode, while a thread sends
+   the key ``w`` and fetches ``/frame.png`` until one frame has come (its
+   IHDR must say 640x480, the saved eye must have moved, the fps EMA lines
+   must be printed); frames/s is counted over the frames after that thread
+   stopped. (c) checkpoint and resume of outside at 1920x1080
+   (``run_checkpoint``).
+4. the ``tools`` probes (``cuda_pathtracer_tpu_torch/tools/``), the Hopper
    counterparts of all 23 Pallas sites under the repo's ``tools/``: each
    module's ``probe`` runs the TPU probe's own sweep through its kernel
    (row gathers, the bf16 slab chain, the scripted packet step, the one-hot
@@ -66,9 +85,13 @@ import io
 import json
 import os
 import re
+import socket
+import struct
 import sys
 import tempfile
+import threading
 import time
+import urllib.request
 
 from cuda_pathtracer_tpu_torch.tools.timing import bound, card_line, cuda_ms
 
@@ -116,6 +139,13 @@ CONVERGE_SAMPLES = 4
 OUTSIDE_ARGS = ['--scene', 'outside', '--width', str(WIDTH), '--height',
                 str(HEIGHT), '--time', '5', '--spp', '4', '--blur',
                 '--device', 'cuda']
+
+# the real-time loop at the reference's own size (BASELINE.md:10), and the
+# camera the CLI tests use on outside (eye, view, d, focal length, aperture)
+LOOP_WIDTH, LOOP_HEIGHT, LOOP_FRAMES = 640, 480, 30
+OUTSIDE_STATE = '0|4|-17\n0|-0.2|1\n1.5\n12\n0.02\n'
+OUTSIDE_EYE = [0.0, 4.0, -17.0]
+SIBENIK_CAMERA = ([0.0, 5.0, -16.0], [0.0, 0.0, 1.0], 1.5, 12.0, 0.0)
 
 # FP32 operations per visit, as the kernels do them: an inner visit slab-tests
 # 16 slots (6 mul, 6 sub, 6 min/max, 4 for the tmin/tmax reductions, 1 max,
@@ -180,7 +210,7 @@ def traversal_work(n_rays: int, n_out: int, stats: dict, row_bytes: int = 512):
 
 
 def run_probes(launches: dict, results: dict, failures: list):
-    """Phase 3: each probe module's own sweep through its kernel, with the
+    """Phase 4: each probe module's own sweep through its kernel, with the
     launch counts set to 0 just before it and read just after, then every
     case held to the plain version (bit for bit); fills ``launches`` and
     ``results`` and appends to ``failures``."""
@@ -264,6 +294,450 @@ def run_cli(main, args, packet_v1: bool):
     return rc, err.getvalue(), app.returned[0], scn.returned[0]
 
 
+def agree_share(a, b) -> float:
+    """Share of rows (pixels) of a and b within rtol 1e-3 + atol 1e-5."""
+    import torch
+    return float(torch.isclose(a, b, rtol=1e-3, atol=1e-5).all(
+        dim=-1).float().mean())
+
+
+def whitted_frame(rt, cam, clear: bool, label: str, failures: list) -> dict:
+    """One Whitted frame of ``rt``, after a warm-up render of it: timed with
+    CUDA events (the span on the device, idle gaps included) and the host
+    clock, with its per-level lanes, then rendered again under the profiler
+    for the device's busy time and the traversal launches' device ms.
+    Checks the frame is finite and non-negative, and that no plain version
+    ran on the card."""
+    import torch
+    from cuda_pathtracer_tpu_torch.ops import kernels
+    from cuda_pathtracer_tpu_torch.utils import profiling
+    rt.render(cam, should_clear=clear)
+    stats = []
+    before = dict(kernels.LAUNCHES)
+    t = time.perf_counter()
+    ms, _ = cuda_ms(lambda: rt.render(cam, should_clear=clear, stats=stats))
+    wall = (time.perf_counter() - t) * 1e3
+    launches = {k: kernels.LAUNCHES[k] - before[k] for k in kernels.NAMES
+                if kernels.LAUNCHES[k] != before[k]}
+    frame = rt.frame.clone()
+    shares = profiling.device_op_shares(
+        lambda: rt.render(cam, should_clear=clear))
+    busy = shares['_busy_ms']
+    cats = {k: v for k, v in shares.items() if not k.startswith('_')}
+    trav = [ms for name, ms in shares['_kernels'] if
+            profiling.categorize_kernel(name).startswith('traverse')]
+    active = sum(s['active'] for s in stats)
+    shadow = sum(s['shadow'] for s in stats)
+    trav_ms = sum(trav)
+    log(f'whitted {label}: depth {len(stats)}, {ms:.2f} ms device (CUDA '
+        f'events), {wall:.1f} ms host wall; {active} closest-hit + {shadow} '
+        f'shadow rays, {(active + shadow) / ms / 1e3:.1f} Mrays/s over the '
+        f'events\' span, {(active + shadow) / busy / 1e3:.1f} over busy '
+        f'time; launches {launches}; profiled: busy {busy:.2f} ms, {len(trav)} '
+        f'traversal launches {trav_ms:.3f} ms ({trav_ms / busy:.3f} of busy), '
+        f'by category ' + ', '.join(f'{k} {v:.2f}' for k, v in
+                                    sorted(cats.items(), key=lambda kv: -kv[1])))
+    n_light = len(trav) // max(len([s for s in stats if s['active']]), 1) - 1
+    for i, st in enumerate(stats):
+        waves = trav[i * (1 + n_light):(i + 1) * (1 + n_light)]
+        log(f'  level {i}: {st["lanes"]} lanes (JAX width), {st["active"]} '
+            f'active, {st["dropped"]} dropped by the cap, {st["shadow"]} '
+            f'shadow rays | traversal ms: closest '
+            + ', shadow '.join(f'{m:.4f}' for m in waves))
+    if tuple(frame.shape) != (rt.width * rt.height, 3) or not bool(
+            torch.isfinite(frame).all()) or bool((frame < 0).any()):
+        failures.append(f'whitted {label}: frame not finite and >= 0')
+    if any(kernels.PLAIN_ON_CUDA.values()):
+        failures.append(f'whitted {label}: plain versions on CUDA '
+                        f'{kernels.PLAIN_ON_CUDA}')
+    return dict(frame=frame, ms=ms, wall=wall, busy=busy, trav_ms=trav_ms,
+                launches=launches, rays=active + shadow, stats=stats)
+
+
+def hold_level0(rt, cam, label: str, failures: list):
+    """Renders one depth-7 frame of ``rt`` recording the rays of its level 0:
+    the closest-hit wave of the primary rays (one per pixel, no jitter) and
+    the first any-hit shadow wave (every ray from the light, with its t_max).
+    Each wave is traced again through ``dispatch.trace`` on the route's
+    kernel, and through it with the traversal swapped for its plain walk, on
+    the card: t, prim_id, prim_type and intersected must be bit-identical."""
+    import torch
+    from cuda_pathtracer_tpu_torch.models import raytracer as rt_mod
+    from cuda_pathtracer_tpu_torch.ops import dispatch as dispatch_mod
+    from cuda_pathtracer_tpu_torch.ops import traverse_packet as tp1
+    from cuda_pathtracer_tpu_torch.ops import traverse_packet2 as tp2
+    calls = []
+
+    def pick(args, kw):
+        calls.append(args[2].shape[0])
+        return ('closest', 'shadow')[len(calls) - 1] if len(calls) <= 2 else None
+
+    with Recorder(rt_mod, 'trace', pick=pick) as rec:
+        rt.render(cam, should_clear=False)
+    stats = {}
+
+    def merged_ref(table, ro, rd, t0, live, stop, want_uv=False):
+        return tp2.traverse_merged_ref(table, ro, rd, t0, live, stop, want_uv,
+                                       stats=stats)
+
+    def split_ref(tables, ro, rd, t0, live, stop, cheap=False):
+        return tp1.traverse_packet_ref(tables, ro, rd, t0, live, stop, cheap,
+                                       stats=stats)
+
+    for wave in ('closest', 'shadow'):
+        if wave not in rec.saved:
+            failures.append(f'whitted {label}: no level-0 {wave} wave recorded')
+            continue
+        args, kw = rec.saved[wave]
+        ms, k = cuda_ms(lambda: dispatch_mod.trace(*args, **kw))
+        stats.clear()
+        with patched(dispatch_mod, 'traverse_merged', merged_ref), \
+                patched(tp1, 'traverse_split', split_ref):
+            pms, p = cuda_ms(lambda: dispatch_mod.trace(*args, **kw))
+        active = kw.get('active')
+        n_live = int(active.sum()) if active is not None else args[2].shape[0]
+
+        def bits(hit, f):
+            x = getattr(hit, f)
+            return x.view(torch.int32) if f == 't' else x
+        diff = {f: int((bits(k, f) != bits(p, f)).sum())
+                for f in ('t', 'prim_id', 'prim_type', 'intersected')}
+        visits = stats.get('inner', 0) + stats.get('leaf', 0)
+        log(f'  level-0 {wave} wave of {label}: {args[2].shape[0]} rays, '
+            f'{n_live} live, {int(k.intersected.sum())} hits, '
+            f'{visits / max(n_live, 1):.2f} visits per live ray (plain walk); '
+            f'trace {ms:.3f} ms, plain {pms:.1f} ms; mismatches vs plain {diff}')
+        if any(diff.values()):
+            failures.append(f'whitted {label} level-0 {wave}: kernel disagrees '
+                            f'with plain {diff}')
+
+
+def run_whitted(cli_main, sibenik, tmp: str, failures: list) -> dict:
+    """Phase 3a: the Whitted raytracer at 1920x1080. Sibenik (v2): a clearing
+    frame (depth 2) and a converged one (depth 7). The CLI's ``--mode ray``
+    on outside at t = 5 (one depth-2 frame after the refit) with
+    ``PACKET_V1`` on and then off, then one depth-7 outside frame on each
+    route; v1 and v2 must agree, and so must a 64x48 depth-7 outside frame
+    on the card and on the CPU. Returns {route: traversal launches}."""
+    import torch
+    from cuda_pathtracer_tpu_torch.core.camera import Camera
+    from cuda_pathtracer_tpu_torch.models import raytracer as rt_mod
+    from cuda_pathtracer_tpu_torch.ops import dispatch as dispatch_mod
+    from cuda_pathtracer_tpu_torch.ops import kernels
+    from cuda_pathtracer_tpu_torch.scene import builder
+    routes = {'v1': 'traverse_packet', 'v2': 'traverse'}
+    counts = {}
+
+    kernels.reset_counts()
+    rt = rt_mod.Raytracer(sibenik, WIDTH, HEIGHT, device='cuda')
+    cam = Camera.create(*SIBENIK_CAMERA, device='cuda')
+    for clear in (True, False):
+        f = whitted_frame(rt, cam, clear, f'sibenik v2 depth '
+                          f'{2 if clear else 7}', failures)
+    counts['sibenik'] = dict(kernels.LAUNCHES)
+    if kernels.LAUNCHES['traverse'] <= 0 or kernels.LAUNCHES['traverse_packet']:
+        failures.append(f'whitted sibenik: launches {kernels.LAUNCHES}')
+    hold_level0(rt, cam, 'sibenik v2 depth 7', failures)
+    del rt
+
+    frames = {}
+    for v1 in (True, False):
+        tag = 'v1' if v1 else 'v2'
+        args = ['--scene', 'outside', '--mode', 'ray', '--width', str(WIDTH),
+                '--height', str(HEIGHT), '--time', '5', '--device', 'cuda',
+                '--out', os.path.join(tmp, f'ray-{tag}.png'), '--state',
+                os.path.join(tmp, f'ray-{tag}.txt')]
+        kernels.reset_counts()
+        t = time.perf_counter()
+        dispatch_mod.PACKET_V1 = v1
+        err = io.StringIO()
+        try:
+            with Recorder(rt_mod, 'Raytracer', returns=True) as app, \
+                    contextlib.redirect_stderr(err):
+                rc = cli_main(args)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            got = dict(kernels.LAUNCHES)
+            text = err.getvalue()
+            log(f'cli --mode ray outside {tag}: rc={rc}, {wall:.2f} s wall, '
+                f'launches {got}; ' + ' | '.join(
+                    line for line in text.splitlines()
+                    if line.startswith('rendered')))
+            if rc != 0 or re.search(r'^energy', text, re.M):
+                failures.append(f'cli --mode ray {tag}: rc={rc}')
+                continue
+            rt = app.returned[0]
+            if got[routes[tag]] <= 0 or got[routes['v2' if v1 else 'v1']]:
+                failures.append(f'cli --mode ray {tag}: launches {got}')
+            if any(kernels.PLAIN_ON_CUDA.values()):
+                failures.append(f'cli --mode ray {tag}: plain versions on '
+                                f'CUDA {kernels.PLAIN_ON_CUDA}')
+            if rt.scene.refits < 1:
+                failures.append(f'cli --mode ray {tag}: no refit')
+            frames[(tag, 2)] = rt.frame.clone()
+            # the same scene and engine, one converged (depth 7) frame
+            out_cam = Camera.create([0.0, 2.0, -3.0], [0.0, 0.0, 1.0], 1.5,
+                                    5.0, 0.01, device='cuda')
+            kernels.reset_counts()
+            f = whitted_frame(rt, out_cam, False, f'outside {tag} depth 7',
+                              failures)
+            counts[f'outside-{tag}'] = dict(kernels.LAUNCHES)
+            frames[(tag, 7)] = f['frame']
+            hold_level0(rt, out_cam, f'outside {tag} depth 7', failures)
+            del rt, app
+        finally:
+            dispatch_mod.PACKET_V1 = False
+    for depth in (2, 7):
+        if ('v1', depth) in frames and ('v2', depth) in frames:
+            share = agree_share(frames[('v1', depth)], frames[('v2', depth)])
+            log(f'whitted outside depth {depth}: v1 vs v2 {share:.6f} of '
+                f'pixels agree (rtol 1e-3, atol 1e-5)')
+            if share < 0.995:
+                failures.append(f'whitted outside depth {depth}: v1 vs v2 '
+                                f'only {share:.6f}')
+
+    small = {}
+    for dev in ('cuda', 'cpu'):
+        scene = builder.get_scene('outside')
+        scene.update(None, 5.0)
+        srt = rt_mod.Raytracer(scene, 64, 48, device=dev)
+        scam = Camera.create([0.0, 2.0, -3.0], [0.0, 0.0, 1.0], 1.5, 5.0,
+                             0.01, device=dev)
+        srt.render(scam, should_clear=True)
+        srt.render(scam, should_clear=False)
+        small[dev] = srt.frame.cpu()
+    share = agree_share(small['cuda'], small['cpu'])
+    log(f'whitted outside 64x48 depth 7: card vs CPU {share:.6f} of pixels '
+        f'agree')
+    if share < 0.995:
+        failures.append(f'whitted 64x48: card vs CPU only {share:.6f}')
+    return counts
+
+
+def _poke(port: int, stop, seen: dict):
+    """While the serve loop runs: send the key ``w`` as soon as the viewer
+    answers, then fetch ``/frame.png`` until one frame has come, and stop
+    (so that the loop's later frames share the interpreter with no HTTP
+    traffic)."""
+    base = f'http://127.0.0.1:{port}'
+    while not stop.is_set():
+        try:
+            if 'key' not in seen:
+                urllib.request.urlopen(f'{base}/key?k=w', timeout=5).read()
+                seen['key'] = time.perf_counter()
+            png = urllib.request.urlopen(f'{base}/frame.png', timeout=5).read()
+            seen['fetches'] = seen.get('fetches', 0) + 1
+            if png:
+                seen['png'] = png
+                seen['done'] = time.perf_counter()
+                return
+        except OSError:
+            pass
+        stop.wait(0.05)
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(('127.0.0.1', 0))
+        return s.getsockname()[1]
+
+
+def run_loops(cli_main, tmp: str, failures: list) -> dict:
+    """Phase 3b: ``--serve <a free port> --frames 30`` on outside at 640x480,
+    in path mode and then ray mode, with a thread that sends the key ``w``
+    and fetches the frames. The loop's host time is split by stage with
+    ``utils/profiling.StageTimer`` (render issue, finish, display transform,
+    the image to the host, the PNG, the scene update). Returns {mode:
+    frames per second}."""
+    import torch
+    from cuda_pathtracer_tpu_torch.models import film
+    from cuda_pathtracer_tpu_torch.models.pathtracer import Pathtracer
+    from cuda_pathtracer_tpu_torch.models.raytracer import Raytracer
+    from cuda_pathtracer_tpu_torch.ops import kernels
+    from cuda_pathtracer_tpu_torch.scene.scene import Scene
+    from cuda_pathtracer_tpu_torch.utils import display
+    from cuda_pathtracer_tpu_torch.utils.profiling import StageTimer
+    fps = {}
+    for mode in ('path', 'ray'):
+        port = free_port()
+        state = os.path.join(tmp, f'loop-{mode}.txt')
+        with open(state, 'w') as f:
+            f.write(OUTSIDE_STATE)
+        args = ['--scene', 'outside', '--mode', mode, '--width',
+                str(LOOP_WIDTH), '--height', str(LOOP_HEIGHT), '--serve',
+                str(port), '--frames', str(LOOP_FRAMES), '--state', state,
+                '--device', 'cuda']
+        stop, seen, shown = threading.Event(), {}, []
+        poker = threading.Thread(target=_poke, args=(port, stop, seen),
+                                 daemon=True)
+        stages = StageTimer()
+        app_cls = Raytracer if mode == 'ray' else Pathtracer
+        timed = [(app_cls, 'render', 'render (host issue)'),
+                 (app_cls, 'finish', 'finish (device wait)'),
+                 (app_cls, 'image', 'image (display transform)'),
+                 (film, 'to_uint8', 'to_uint8 (to the host)'),
+                 (display.HttpDisplay, 'present', 'present (PNG encode)'),
+                 (Scene, 'update', 'scene.update')]
+
+        def stage(fn, name):
+            def wrapped(*a, **kw):
+                with stages.stage(name):
+                    out = fn(*a, **kw)
+                if name.startswith('present'):
+                    shown.append(time.perf_counter())
+                return out
+            return wrapped
+        kernels.reset_counts()
+        err = io.StringIO()
+        t = time.perf_counter()
+        poker.start()
+        try:
+            with contextlib.ExitStack() as es:
+                for owner, attr, name in timed:
+                    es.enter_context(patched(owner, attr,
+                                             stage(getattr(owner, attr), name)))
+                es.enter_context(contextlib.redirect_stderr(err))
+                rc = cli_main(args)
+            torch.cuda.synchronize()
+        finally:
+            stop.set()
+            poker.join(timeout=10)
+        wall = time.perf_counter() - t
+        text = err.getvalue()
+        emas = re.findall(r'^running average fps: (\S+)$', text, re.M)
+        rate = ((len(shown) - 1) / (shown[-1] - shown[0])
+                if len(shown) > 1 else 0.0)
+        # the frames presented after the fetching thread had stopped
+        quiet = [s for s in shown if s > seen.get('done', float('inf'))]
+        quiet_rate = ((len(quiet) - 1) / (quiet[-1] - quiet[0])
+                      if len(quiet) > 1 else 0.0)
+        fps[mode] = quiet_rate
+        png = seen.get('png', b'')
+        size = struct.unpack('>II', png[16:24]) if len(png) >= 24 else None
+        # the key moved the eye: the view line is renormalised on every
+        # frame, key or not, so only the eye tells
+        with open(state) as f:
+            eye = [float(x) for x in f.readline().split('|')]
+        moved = 'key' in seen and eye != OUTSIDE_EYE
+        log(f'serve loop {mode} {LOOP_WIDTH}x{LOOP_HEIGHT}: rc={rc}, '
+            f'{len(shown)} frames, {rate:.2f} frames/s between the first and '
+            f'the last frame, {quiet_rate:.2f} over the {len(quiet)} frames '
+            f'after the fetching thread stopped ({wall:.1f} s wall with the '
+            f'scene build); fps EMA lines {emas}; {seen.get("fetches", 0)} '
+            f'fetches, PNG IHDR {size}; key sent {"key" in seen}, saved eye '
+            f'{eye} (was {OUTSIDE_EYE}), camera moved {moved}; launches '
+            f'{ {k: v for k, v in kernels.LAUNCHES.items() if v} }')
+        for line in text.splitlines():
+            if line.startswith(('Total energy', 'energy audit')):
+                log('  ' + line)
+        for line in stages.report().splitlines():
+            log('  ' + line)
+        if poker.is_alive():
+            failures.append(f'serve {mode}: the fetching thread did not stop')
+        if rc != 0 or len(shown) != LOOP_FRAMES or not emas:
+            failures.append(f'serve {mode}: rc={rc}, {len(shown)} frames, fps '
+                            f'lines {emas}')
+        if size != (LOOP_WIDTH, LOOP_HEIGHT) or not png.startswith(
+                b'\x89PNG') or not moved:
+            failures.append(f'serve {mode}: PNG IHDR {size}, camera moved '
+                            f'{moved}')
+        if kernels.LAUNCHES['traverse'] <= 0 or (
+                mode == 'path' and kernels.LAUNCHES['blur'] <= 0):
+            failures.append(f'serve {mode}: launches {kernels.LAUNCHES}')
+        if any(kernels.PLAIN_ON_CUDA.values()):
+            failures.append(f'serve {mode}: plain versions on CUDA '
+                            f'{kernels.PLAIN_ON_CUDA}')
+    return fps
+
+
+def run_checkpoint(cli_main, tmp: str, failures: list):
+    """Phase 3c: checkpoint and resume of outside at 1920x1080 (t = 5).
+    Through the CLI: ``--spp 6 --checkpoint``, then ``--resume --spp 7
+    --checkpoint``, beside a straight ``--spp 7 --checkpoint``. On resume the
+    CLI skips the clearing frame and so, as the JAX CLI does, traces the 7th
+    sample on the scene as built rather than as animated to ``--time``
+    (ROADMAP C.6): the resumed checkpoint is held against the same steps in
+    this process (an engine built on the scene as built, the scene animated
+    to t = 5, the 6-sample checkpoint loaded, one sample), and the straight
+    run's counters and pixels are printed beside it, not held. Then the
+    engines' own round trip: an engine at 6 samples saves, a second engine
+    built on the same animated scene loads, and both render a 7th sample.
+    Each pair must agree on (sample_idx, rand_idx) and on at least 99% of
+    the pixels (rtol 1e-3, atol 1e-5; the guiding scatter's atomics reorder
+    the sums)."""
+    import numpy as np
+    import torch
+    from cuda_pathtracer_tpu_torch.core.camera import Camera
+    from cuda_pathtracer_tpu_torch.models.pathtracer import Pathtracer
+    from cuda_pathtracer_tpu_torch.scene import builder
+    from cuda_pathtracer_tpu_torch.utils import checkpoint as ck
+    base = ['--scene', 'outside', '--width', str(WIDTH), '--height',
+            str(HEIGHT), '--time', '5', '--device', 'cuda', '--out',
+            os.path.join(tmp, 'ck.png'), '--state', os.path.join(tmp, 'ck.txt')]
+    paths = {k: os.path.join(tmp, f'{k}.npz')
+             for k in ('c6', 'c7r', 'c7', 'c7x', 'e7', 'e7r')}
+    for extra in (['--spp', '6', '--checkpoint', paths['c6']],
+                  ['--spp', '7', '--resume', paths['c6'], '--checkpoint',
+                   paths['c7r']],
+                  ['--spp', '7', '--checkpoint', paths['c7']]):
+        err = io.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stderr(err):
+            rc = cli_main(base + extra)
+        log(f'cli {" ".join(extra[:4])}: rc={rc}, '
+            f'{time.perf_counter() - t:.2f} s | ' + ' | '.join(
+                line for line in err.getvalue().splitlines()
+                if line.startswith(('rendered', 'resumed', 'checkpoint'))))
+        if rc != 0:
+            failures.append(f'checkpoint cli {extra}: rc={rc}')
+            return
+
+    def held(label, a, b, hold=True):
+        with np.load(paths[a]) as x, np.load(paths[b]) as y:
+            counts = [(int(z['sample_idx']), int(z['rand_idx'])) for z in (x, y)]
+            finite = all(bool(np.isfinite(z[k]).all()) for z in (x, y)
+                         for k in ('lum', 'alb'))
+            share = agree_share(torch.from_numpy(x['lum'][:, :3]),
+                                torch.from_numpy(y['lum'][:, :3]))
+        log(f'{label}: (sample_idx, rand_idx) {counts[0]} vs {counts[1]}, '
+            f'{share:.6f} of pixels agree, finite {finite}'
+            + ('' if hold else ' (not held: ROADMAP C.6)'))
+        if not finite or counts[0][0] != 7 or (
+                hold and (counts[0] != counts[1] or share < 0.99)):
+            failures.append(f'checkpoint {label}: {counts}, {share:.6f} of '
+                            f'pixels agree, finite {finite}')
+
+    # the CLI's resume, step by step in this process
+    scene = builder.get_scene('outside')
+    pt = Pathtracer(scene, WIDTH, HEIGHT, device='cuda')
+    scene.update(None, 5.0)
+    cam = ck.load_checkpoint(paths['c6'], pt)
+    pt.render(cam, 5.0, 0.0, should_clear=False)
+    ck.save_checkpoint(paths['c7x'], pt, cam)
+    del pt
+    held('cli resumed vs its steps in process', 'c7r', 'c7x')
+    held('cli resumed vs straight', 'c7r', 'c7', hold=False)
+
+    # the engines' round trip on the animated scene
+    cam = Camera.create([0.0, 2.0, -3.0], [0.0, 0.0, 1.0], 1.5, 5.0, 0.01,
+                        device='cuda')
+    pt = Pathtracer(scene, WIDTH, HEIGHT, device='cuda')
+    pt.render(cam, should_clear=True)
+    while pt.sample_idx < 6:
+        pt.render(cam)
+    path = os.path.join(tmp, 'engine6.npz')
+    ck.save_checkpoint(path, pt, cam)
+    pt2 = Pathtracer(scene, WIDTH, HEIGHT, device='cuda')
+    cam2 = ck.load_checkpoint(path, pt2)
+    pt.render(cam)
+    pt2.render(cam2)
+    ck.save_checkpoint(paths['e7'], pt, cam)
+    ck.save_checkpoint(paths['e7r'], pt2, cam2)
+    held(f'engine resumed vs uninterrupted at {WIDTH}x{HEIGHT}', 'e7r', 'e7')
+    del pt, pt2
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -332,8 +806,7 @@ def main() -> int:
     if (pt.bands, pt.band_h, pt.tile_order) != (5, 216, True):
         failures.append(f'sibenik: {pt.bands} bands of {pt.band_h} rows, '
                         f'tile order {pt.tile_order}; want 5 of 216, tiled')
-    cam = Camera.create([0.0, 5.0, -16.0], [0.0, 0.0, 1.0], 1.5, 12.0, 0.0,
-                        device='cuda')
+    cam = Camera.create(*SIBENIK_CAMERA, device='cuda')
 
     # the traversal waves held against the plain versions below: the first
     # band of the first converge sample, its first three trace calls and its
@@ -609,7 +1082,7 @@ def main() -> int:
         f'{mrays:.2f} Mrays/s)')
     if any(r < 1 for r in one_rounds.values()):
         failures.append(f'one band: a tail level never ran {one_rounds}')
-    del pt, scene
+    del pt          # the scene serves the Whitted phase
     torch.cuda.empty_cache()
 
     # ---- path 2: the CLI on the animated outside scene (v1, then v2) ----
@@ -693,6 +1166,23 @@ def main() -> int:
             if share < 0.995:
                 failures.append(f'outside: only {share:.6f} of pixels agree '
                                 f'between v1 and v2')
+
+    # ---- phase 3: the Whitted raytracer, the real-time loops, checkpoints
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        whitted = run_whitted(cli_main, scene, tmp, failures)
+        del scene
+        torch.cuda.empty_cache()
+        log(f'phase 3a (Whitted frames): {time.perf_counter() - t:.1f} s '
+            f'wall; launches per run {whitted}')
+        t = time.perf_counter()
+        fps = run_loops(cli_main, tmp, failures)
+        log(f'phase 3b (serve loops): {time.perf_counter() - t:.1f} s wall; '
+            f'frames/s {fps} on {card}')
+        t = time.perf_counter()
+        run_checkpoint(cli_main, tmp, failures)
+        log(f'phase 3c (checkpoint and resume): {time.perf_counter() - t:.1f} '
+            f's wall')
 
     # ---- end to end on a small input: the room on the card vs the CPU,
     # below the tail gate and in the full-size schedule at a small size ----

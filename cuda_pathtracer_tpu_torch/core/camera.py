@@ -5,6 +5,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from . import rng as _rng
@@ -25,6 +26,12 @@ class Camera(NamedTuple):
         def f(x):
             return torch.as_tensor(x, dtype=torch.float32, device=device)
         return Camera(f(eye), f(view_dir), f(d), f(focal_length), f(aperture))
+
+
+def default_camera(device='cuda') -> Camera:
+    """The fallback camera of stateLoader.h:30-33."""
+    return Camera.create([0.0, 2.0, -3.0], [0.0, 0.0, 1.0], 1.5, 5.0, 0.01,
+                         device=device)
 
 
 def basis(cam: Camera, width: int, height: int):
@@ -82,13 +89,78 @@ def generate_rays(cam: Camera, xs, ys, seeds, width: int, height: int):
     return origin, direction, rand_state
 
 
+def _div(x, d: int):
+    """x / d rounded as one IEEE division on every device: PyTorch's CUDA
+    kernels divide by a Python scalar as a multiply by its reciprocal, an
+    ulp off the CPU's (and the JAX package's) quotient for many x when d is
+    not a power of two; a 0-d tensor on x's device divides exactly."""
+    return x / torch.tensor(float(d), dtype=torch.float32, device=x.device)
+
+
 def generate_rays_simple(cam: Camera, xs, ys, width: int, height: int):
     """Jitter-free pinhole rays, Camera::getRay(x, y) (src/types.h:660-667):
     the rays of the Whitted mode and of click-to-focus. Returns (origin[...,
-    3], direction[..., 3])."""
-    xf = xs.to(torch.float32) / width
-    yf = ys.to(torch.float32) / height
+    3], direction[..., 3]). The pixel fractions divide exactly (``_div``):
+    at a far checkerboard an ulp of ray direction moves the hit by more
+    than a square."""
+    xf = _div(xs.to(torch.float32), width)
+    yf = _div(ys.to(torch.float32), height)
     lt, u, v = basis(cam, width, height)
     point = _distort(cam, lt + xf[..., None] * u + yf[..., None] * v)
     direction = vm.normalize(point - cam.eye)
     return cam.eye.expand(direction.shape), direction
+
+
+# ---------------------------------------------------------------------------
+# Host-side interactive updates (the WASD/arrow/PgUp-PgDn handling of
+# src/types.h:612-637), in float64 numpy as the JAX package does them.
+# ---------------------------------------------------------------------------
+
+MOVE_SPEED = 0.08
+LOOK_SPEED = 0.02
+APERTURE_SPEED = 0.001
+
+
+def _host(x) -> np.ndarray:
+    return x.detach().cpu().numpy().astype(np.float64)
+
+
+def update_camera(cam: Camera, actions: set) -> tuple[Camera, bool]:
+    """Apply the held camera actions; returns (new camera on ``cam``'s
+    device, has_moved)."""
+    eye = _host(cam.eye)
+    view = _host(cam.view_dir)
+    aperture = float(cam.aperture)
+
+    def _norm(v):
+        return v / max(np.linalg.norm(v), 1e-12)
+
+    side = _norm(np.cross([0.0, 1.0, 0.0], view))
+    if 'move_forward' in actions:
+        eye += MOVE_SPEED * view
+    if 'move_backward' in actions:
+        eye -= MOVE_SPEED * view
+    if 'move_left' in actions:
+        eye -= MOVE_SPEED * side
+    if 'move_right' in actions:
+        eye += MOVE_SPEED * side
+    if 'look_up' in actions:
+        view[1] += LOOK_SPEED
+    if 'look_down' in actions:
+        view[1] -= LOOK_SPEED
+    if 'look_left' in actions:
+        view -= LOOK_SPEED * side
+    if 'look_right' in actions:
+        view += LOOK_SPEED * side
+    if 'aperture_up' in actions:
+        aperture += APERTURE_SPEED
+    if 'aperture_down' in actions:
+        aperture -= APERTURE_SPEED
+    view = _norm(view)
+
+    moved = (not np.allclose(eye, _host(cam.eye))
+             or not np.allclose(view, _host(cam.view_dir))
+             or aperture != float(cam.aperture))
+    new = Camera.create(eye, view, float(cam.d), float(cam.focal_length),
+                        aperture, device=cam.eye.device)
+    return new, moved

@@ -64,3 +64,9 @@ def energy_audit(lum):
     total = torch.sum(torch.where(torch.isnan(sample),
                                   torch.zeros_like(sample), sample)) / torch.mean(w)
     return total, has_nan, has_neg
+
+
+def to_uint8(img):
+    """A display image as host uint8 (the value times 255, clipped to
+    [0, 255] and truncated)."""
+    return torch.clamp(img * 255.0, 0, 255).to(torch.uint8).cpu().numpy()

@@ -15,6 +15,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils.image import decode_png
+
 
 def _read_hdr(path: str) -> np.ndarray:
     """Minimal Radiance RGBE (.hdr) decoder -> float32 [H, W, 3]."""
@@ -57,17 +59,26 @@ def _read_hdr(path: str) -> np.ndarray:
 
 
 def load_image(path: str) -> np.ndarray:
-    """Decode an image to linear float32 [H, W, C], bottom row first."""
-    if path.lower().endswith('.hdr'):
+    """Decode an image to linear float32 [H, W, C], bottom row first. Reads
+    Radiance ``.hdr`` and 8-bit ``.png`` files with the standard library
+    (the machine with the card has no imaging package). Other formats raise
+    NotImplementedError, which the skydome search does not take for a
+    missing file: the JAX package reads them (JPEG, ...) with PIL, so a
+    fallback here would render another sky."""
+    low = path.lower()
+    if low.endswith('.hdr'):
         img = _read_hdr(path)
+    elif low.endswith('.png'):
+        with open(path, 'rb') as f:
+            px = decode_png(f.read())
+        if px.shape[-1] == 2:      # grey + alpha reads as RGB, as in PIL
+            px = np.repeat(px[..., :1], 3, axis=-1)
+        img = px.astype(np.float32) / 255.0
     else:
-        from PIL import Image
-        with Image.open(path) as im:
-            if im.mode not in ('RGB', 'RGBA', 'L'):
-                im = im.convert('RGB')
-            img = np.asarray(im, np.float32) / 255.0
-            if img.ndim == 2:
-                img = img[..., None]
+        if not os.path.exists(path):
+            raise FileNotFoundError(path)
+        raise NotImplementedError(f'{path}: the port reads .hdr and .png '
+                                  f'images only')
     return np.ascontiguousarray(img[::-1])
 
 

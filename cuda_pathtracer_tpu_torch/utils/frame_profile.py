@@ -45,6 +45,7 @@ from ..core.camera import Camera
 from ..models import pathtracer as ptm
 from ..ops import dispatch, kernels
 from ..scene.builder import get_scene
+from .profiling import busy_us, cuda_spans, is_kernel
 
 WIDTH, HEIGHT = 1920, 1080
 MAIN = 0   # the part key of the full-width bounces before the tail
@@ -128,42 +129,12 @@ class ScheduleTap:
         return sum(b['rounds'].get(part, 0) for b in self.bands)
 
 
-def _is_kernel(e) -> bool:
-    """A CUDA kernel or copy event: the profiler also mirrors the
-    ``cpt/...`` labels onto the device timeline, and those are not work."""
-    return (e.device_type == torch.autograd.DeviceType.CUDA
-            and not e.name.startswith('cpt/'))
-
-
-def _cuda_spans(events):
-    return sorted((e.time_range.start, e.time_range.end) for e in events
-                  if _is_kernel(e))
-
-
-def _busy(spans, lo=float('-inf'), hi=float('inf')) -> tuple[float, int]:
-    """Union (us) of the kernel intervals that start in [lo, hi), clipped to
-    it, and their count."""
-    busy, end, n = 0.0, float('-inf'), 0
-    for s, e in spans:
-        if not lo <= s < hi:
-            continue
-        n += 1
-        e = min(e, hi)
-        if s > end:
-            busy += e - s
-            end = e
-        elif e > end:
-            busy += e - end
-            end = e
-    return busy, n
-
-
 def _scatter_memsets(events) -> tuple[float, int]:
     """(us, count) of the memsets that zero the guiding scatter's table: the
     device event just before each ``guiding_scatter_kernel``, when it is a
     memset (the wrapper issues the two back to back on one stream)."""
     dev = sorted((e.time_range.start, e.time_range.end, e.name)
-                 for e in events if _is_kernel(e))
+                 for e in events if is_kernel(e))
     total, n = 0.0, 0
     for (s, t, prev), (_, _, name) in zip(dev, dev[1:]):
         if 'guiding_scatter_kernel(' in name and prev.startswith('Memset'):
@@ -195,14 +166,14 @@ def _parts(tap: ScheduleTap, events, spans):
             row['lives'] += b['lives'][part]
             if part == MAIN:
                 # the band minus its tail levels: bounces, guiding, film
-                busy, n = _busy(spans, lo, hi)
+                busy, n = busy_us(spans, lo, hi)
                 wall = hi - lo
                 for s, e in inner:
-                    db, dn = _busy(spans, s, e)
+                    db, dn = busy_us(spans, s, e)
                     busy, n, wall = busy - db, n - dn, wall - (e - s)
             else:
                 s, e = ranges.get((i, str(part)), (0.0, 0.0))
-                busy, n = _busy(spans, s, e)
+                busy, n = busy_us(spans, s, e)
                 wall = e - s
             row['kernels'] += n
             row['wall'] += wall
@@ -233,7 +204,7 @@ def _report(name: str, work, top: int = 8):
     kernels.reset_counts()
     tap = ScheduleTap()
     wall, prof = _profiled(work, tap)
-    busy, n = _busy(_cuda_spans(prof.events()))
+    busy, n = busy_us(cuda_spans(prof.events()))
     busy /= 1e3
     bodies = sum(len(w) for b in tap.bands for w in b['widths'].values())
     print(f'{name}: unprofiled wall {plain_wall:.1f} ms; profiled wall '
@@ -266,7 +237,7 @@ def _report(name: str, work, top: int = 8):
     tap = ScheduleTap(mark=True)
     wall, prof = _profiled(work, tap)
     events = prof.events()
-    spans = _cuda_spans(events)
+    spans = cuda_spans(events)
     print(f'  marked run (a sync per bounce and around each band and level): '
           f'wall {wall:.1f} ms')
     print('  band part      bounces rounds widths        live lanes per bounce '

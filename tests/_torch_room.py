@@ -7,6 +7,16 @@ back one normal-mapped), an emissive ceiling quad, a glass sphere, a mirror
 sphere, a 12-triangle cube made with ``add_mesh`` and, below the open front,
 a checkerboard plane. A few hundred triangles, no files read.
 
+``build_glass_room(scene_mod, add_cube)`` builds, the same way, a box of
+half-mirror walls around a clear glass sphere (transmit 1, IOR 1.5, no
+absorption) that fills the view of ``GLASS_CAMERA``: every primary ray
+splits into a refracted and a reflected child, and both kinds split again,
+so a Whitted frame there is cut by the raytracer's lane cap. The camera
+stands off the room's mirror plane: seen from on it, mirror-image lanes tie
+in weight to within an ulp, and which one of such a pair the cap keeps then
+follows each backend's rounding (XLA contracts multiply-adds, PyTorch's CPU
+kernels do not).
+
 ``write_cube_obj(dir)`` writes the ``cube.obj`` that the ``outside`` scene
 loads, for tests that build it through both packages.
 """
@@ -92,6 +102,41 @@ def build_room(scene_mod, add_cube):
     s.add_sphere(scene_mod.Sphere((0.2, 0.6, 3.0), 0.6, mirror_id))
     s.add_plane(scene_mod.Plane((0.0, 1.0, 0.0), 0.05, wall))   # y = -0.05
     s.add_point_light(scene_mod.PointLight((0.0, 3.0, 0.0), (5.0, 5.0, 5.0)))
+    s.finalize()
+    return s
+
+
+GLASS_CAMERA = dict(eye=[0.37, 1.45, -4.2], view_dir=[0.05, 0.03, 1.0],
+                    d=1.5, focal_length=5.0, aperture=0.0)
+
+
+def build_glass_room(scene_mod, add_cube):
+    s = scene_mod.Scene(asset_dirs=['.'])
+    M = scene_mod.Material
+    wall_m = M.DIFFUSE((0.7, 0.6, 0.5))
+    wall_m.reflect = 0.5
+    wall = s.add_material(wall_m)
+    glass = M.DIFFUSE((1, 1, 1))
+    glass.transmit = 1.0
+    glass.refractive_index = 1.5
+    glass_id = s.add_material(glass)
+    cube_id = s.add_material(M.DIFFUSE((0.3, 0.6, 0.3)))
+    cube = scene_mod.GameObject(add_cube(s, cube_id))
+    cube.position[:] = [2.5, 1.0, 6.0]
+    s.add_object(cube)
+    # a box of 12 x 12 x 24 around the sphere, normals inward
+    for v0, v1, v2, uv6 in (_grid([-6, -4, -8], [0, 0, 24], [12, 0, 0], 2, 2),
+                            _grid([-6, -4, 16], [0, 12, 0], [12, 0, 0], 2, 2),
+                            _grid([-6, -4, -8], [0, 12, 0], [0, 0, 24], 2, 2),
+                            _grid([6, -4, -8], [0, 0, 24], [0, 12, 0], 2, 2),
+                            _grid([-6, 8, -8], [12, 0, 0], [0, 0, 24], 2, 2),
+                            _grid([-6, -4, -8], [12, 0, 0], [0, 12, 0], 2, 2)):
+        s.add_object(scene_mod.GameObject(s.add_mesh(
+            v0.astype(np.float32), v1.astype(np.float32),
+            v2.astype(np.float32), wall, uv=uv6)))
+    s.add_sphere(scene_mod.Sphere((0.0, 1.6, 0.0), 3.8, glass_id))
+    s.add_plane(scene_mod.Plane((0.0, 1.0, 0.0), 3.9, wall))   # y = -3.9
+    s.add_point_light(scene_mod.PointLight((0.0, 6.0, -6.0), (60.0, 60.0, 60.0)))
     s.finalize()
     return s
 

@@ -9,7 +9,12 @@ tails all run. One clear frame, then two converge dispatches. Both packages'
 attributes are patched for the call only; the JAX engine's compiled
 ``render_sample`` is dropped before and after, since the gate is read while
 it traces.
+
+``lowered_gate(spp)`` is that patch as a context manager, for tests that
+drive the engines themselves.
 """
+import contextlib
+
 import numpy as np
 import pytest
 
@@ -34,6 +39,23 @@ class Result:
         self.rounds = rounds
 
 
+@contextlib.contextmanager
+def lowered_gate(spp: int = 1):
+    """Both packages' lane cap and tail gate at LANES and their
+    SPP_PER_DISPATCH at ``spp`` for the body; yields the MonkeyPatch. The
+    JAX engine's compiled ``render_sample`` is dropped before and after."""
+    with pytest.MonkeyPatch.context() as mp:
+        for mod, cls in ((jptm, jptm.Pathtracer), (tptm, tptm.Pathtracer)):
+            mp.setattr(mod, 'TAIL_MIN_LANES', LANES)
+            mp.setattr(cls, 'MAX_LANES_PER_DISPATCH', LANES)
+            mp.setattr(cls, 'SPP_PER_DISPATCH', spp)
+        jptm.render_sample.clear_cache()
+        try:
+            yield mp
+        finally:
+            jptm.render_sample.clear_cache()
+
+
 def render_both(spp: int) -> Result:
     rounds = []
     band_rounds = {}
@@ -53,28 +75,20 @@ def render_both(spp: int) -> Result:
             return out
         return wrapped
 
-    with pytest.MonkeyPatch.context() as mp:
-        for mod, cls in ((jptm, jptm.Pathtracer), (tptm, tptm.Pathtracer)):
-            mp.setattr(mod, 'TAIL_MIN_LANES', LANES)
-            mp.setattr(cls, 'MAX_LANES_PER_DISPATCH', LANES)
-            mp.setattr(cls, 'SPP_PER_DISPATCH', spp)
+    with lowered_gate(spp) as mp:
         mp.setattr(tptm, '_tail_round', count_round(tptm._tail_round))
         mp.setattr(tptm, 'render_sample', band(tptm.render_sample))
-        jptm.render_sample.clear_cache()
-        try:
-            jpt = jptm.Pathtracer(build_room(js, add_cube), W, H)
-            tpt = tptm.Pathtracer(build_room(ts, add_cube), W, H, device='cpu')
-            jcam = JCamera.create(**CAMERA)
-            tcam = TCamera.create(**CAMERA, device='cpu')
-            j_ridx, t_ridx = [], []
-            for clear in (True, False, False):
-                rounds.append([])
-                jpt.render(jcam, should_clear=clear)
-                tpt.render(tcam, should_clear=clear)
-                j_ridx.append(int(jpt.rand_idx))
-                t_ridx.append(tpt.rand_idx)
-        finally:
-            jptm.render_sample.clear_cache()
+        jpt = jptm.Pathtracer(build_room(js, add_cube), W, H)
+        tpt = tptm.Pathtracer(build_room(ts, add_cube), W, H, device='cpu')
+        jcam = JCamera.create(**CAMERA)
+        tcam = TCamera.create(**CAMERA, device='cpu')
+        j_ridx, t_ridx = [], []
+        for clear in (True, False, False):
+            rounds.append([])
+            jpt.render(jcam, should_clear=clear)
+            tpt.render(tcam, should_clear=clear)
+            j_ridx.append(int(jpt.rand_idx))
+            t_ridx.append(tpt.rand_idx)
     return Result(jpt, tpt, j_ridx, t_ridx, rounds[1:])
 
 

@@ -7,7 +7,14 @@ converge samples. It runs twice, once with the v2 traversal and once with
 ``PACKET_V1`` (the split-table traversal and shading's re-intersect). At least
 99% of the PNGs' pixels must be identical and the printed energies agree to
 1e-4 relative; 32x24 is below the JAX tail gate, so both engines draw the
-same random numbers. Options the port has not got yet exit non-zero.
+same random numbers.
+
+``--mode ray`` (one clearing Whitted frame after the refit) runs the same
+way, v2 and v1: at least 99.5% of the pixels identical, no energy line, the
+same state file. A ``--checkpoint`` that one package writes at 6 spp
+resumes in the other's ``--resume`` to 7 spp as it does in the JAX CLI's
+(99% of the pixels identical, the energy to 1e-4). Options the
+port has not got yet (``--shard``, scene scripts) exit non-zero.
 """
 import contextlib
 import io
@@ -18,6 +25,7 @@ import pytest
 from PIL import Image
 
 from _torch_room import write_cube_obj
+from _torch_whitted import count_traversals
 from cuda_pathtracer_tpu import __main__ as jmain
 from cuda_pathtracer_tpu_torch import __main__ as tmain
 from cuda_pathtracer_tpu_torch.accel import refit as trefit
@@ -31,18 +39,29 @@ ARGS = ['--scene', 'outside', '--width', '32', '--height', '24', '--time',
         '2', '--spp', '7']
 
 
-def _run(main, tmp_path, tag, capsys, extra=()):
+def _cli(main, tmp_path, tag, extra=()):
+    """Run a CLI main with stderr captured. Returns (stderr, PNG, state)."""
     state = tmp_path / f'{tag}.txt'
     state.write_text(STATE)
     out = tmp_path / f'{tag}.png'
-    rc = main([*ARGS, '--asset-dir', str(tmp_path), '--state', str(state),
-               '--out', str(out), *extra])
-    err = capsys.readouterr().err
+    buf = io.StringIO()
+    with contextlib.redirect_stderr(buf):
+        rc = main([*ARGS, '--asset-dir', str(tmp_path), '--state', str(state),
+                   '--out', str(out), *extra])
+    err = buf.getvalue()
     assert rc == 0, err[-2000:]
-    energy = float(re.search(r'^energy (\S+) nan=False neg=False$', err,
-                             re.M).group(1))
+    return err, np.asarray(Image.open(out).convert('RGB')), state.read_text()
+
+
+def _energy(err):
+    return float(re.search(r'^energy (\S+) nan=False neg=False$', err,
+                           re.M).group(1))
+
+
+def _run(main, tmp_path, tag, extra=()):
+    err, img, state = _cli(main, tmp_path, tag, extra)
     assert re.search(r'^rendered 32x24 @ 7 spp in ', err, re.M), err
-    return np.asarray(Image.open(out).convert('RGB')), energy, state.read_text()
+    return img, _energy(err), state
 
 
 @pytest.fixture(scope='module')
@@ -54,23 +73,16 @@ def assets(tmp_path_factory):
 
 @pytest.fixture(scope='module')
 def jax_result(assets):
-    # module scope: capture stderr by hand (capsys is per test)
-    buf = io.StringIO()
-    with contextlib.redirect_stderr(buf):
-        state = assets / 'jax.txt'
-        state.write_text(STATE)
-        rc = jmain.main([*ARGS, '--asset-dir', str(assets), '--state',
-                         str(state), '--out', str(assets / 'jax.png')])
-    err = buf.getvalue()
-    assert rc == 0, err[-2000:]
-    energy = float(re.search(r'^energy (\S+) nan=False neg=False$', err,
-                             re.M).group(1))
-    img = np.asarray(Image.open(assets / 'jax.png').convert('RGB'))
-    return img, energy, state.read_text()
+    return _run(jmain.main, assets, 'jax')
+
+
+@pytest.fixture(scope='module')
+def jax_ray(assets):
+    return _cli(jmain.main, assets, 'jax-ray', ['--mode', 'ray'])
 
 
 @pytest.mark.parametrize('v1', [False, True], ids=['v2', 'v1'])
-def test_cli_matches_jax(assets, jax_result, capsys, monkeypatch, v1):
+def test_cli_matches_jax(assets, jax_result, monkeypatch, v1):
     monkeypatch.setattr(tdispatch, 'PACKET_V1', v1)
     calls = {'v1': 0, 'v2': 0, 'refit': 0}
     for mod, name, key in ((tp1, 'traverse_packet_ref', 'v1'),
@@ -81,7 +93,7 @@ def test_cli_matches_jax(assets, jax_result, capsys, monkeypatch, v1):
             return _f(*a, **kw)
         monkeypatch.setattr(mod, name, counted)
     img, energy, state = _run(tmain.main, assets, 'v1' if v1 else 'v2',
-                              capsys, ['--device', 'cpu'])
+                              ['--device', 'cpu'])
     assert calls['refit'] == 1
     assert (calls['v1'] > 0, calls['v2'] > 0) == (v1, not v1), calls
     jimg, jenergy, jstate = jax_result
@@ -93,10 +105,73 @@ def test_cli_matches_jax(assets, jax_result, capsys, monkeypatch, v1):
     assert state == jstate
 
 
-@pytest.mark.parametrize('extra', [
-    ['--mode', 'ray'], ['--shard'], ['--interactive'], ['--serve', '8000'],
-    ['--frames', '3'], ['--checkpoint', 'c.npz'], ['--resume', 'c.npz'],
-    ['--scene', 'scene.chai']], ids=lambda e: e[0].lstrip('-'))
+@pytest.mark.parametrize('v1', [False, True], ids=['v2', 'v1'])
+def test_cli_ray_matches_jax(assets, jax_ray, monkeypatch, v1):
+    monkeypatch.setattr(tdispatch, 'PACKET_V1', v1)
+    calls = count_traversals(monkeypatch)
+    refits = []
+    monkeypatch.setattr(trefit, 'refit_all', lambda *a, _f=trefit.refit_all,
+                        **kw: refits.append(1) or _f(*a, **kw))
+    err, img, state = _cli(tmain.main, assets, 'ray-v1' if v1 else 'ray-v2',
+                           ['--mode', 'ray', '--device', 'cpu',
+                            '--resume', 'ignored.npz', '--checkpoint',
+                            str(assets / 'ignored.npz')])
+    jerr, jimg, jstate = jax_ray
+    for e in (err, jerr):
+        assert re.search(r'^rendered 32x24 @ 1 spp in ', e, re.M), e
+        assert not re.search(r'^(energy|checkpoint|resumed)', e, re.M), e
+    assert not (assets / 'ignored.npz').exists()
+    assert len(refits) == 1
+    assert (calls['v1'] > 0, calls['v2'] > 0) == (v1, not v1), calls
+    assert img.shape == jimg.shape == (24, 32, 3)
+    assert img.std() > 5
+    same = (img == jimg).all(axis=2).mean()
+    assert same >= 0.995, same
+    assert state == jstate
+
+
+@pytest.fixture(scope='module')
+def jax_resumed(assets):
+    """The JAX CLI writes a checkpoint at 6 spp and resumes it to 7 spp.
+    Returns (checkpoint path, stderr, PNG) of the resumed run."""
+    ckpt = assets / 'jax6.npz'
+    err, _, _ = _cli(jmain.main, assets, 'jax-6',
+                     ['--spp', '6', '--checkpoint', str(ckpt)])
+    assert re.search(r'^checkpoint -> ', err, re.M), err
+    err, img, _ = _cli(jmain.main, assets, 'jax-resumed',
+                       ['--resume', str(ckpt)])
+    return ckpt, err, img
+
+
+@pytest.mark.parametrize('writer', ['port', 'jax'])
+def test_cli_checkpoint_resumes_across_packages(assets, jax_resumed, writer):
+    """One package writes a 6 spp checkpoint and the other resumes it to 7
+    spp; the result is the JAX CLI's own resumed render. (Not the
+    uninterrupted 7 spp render: on resume both CLIs skip the clearing frame,
+    so the samples after it trace the scene as built, not as animated to
+    ``--time``.)"""
+    ckpt, jerr, jimg = jax_resumed
+    if writer == 'port':
+        ckpt = assets / 'port6.npz'
+        err, _, _ = _cli(tmain.main, assets, 'port-6',
+                         ['--spp', '6', '--checkpoint', str(ckpt), '--device',
+                          'cpu'])
+        assert re.search(r'^checkpoint -> ', err, re.M), err
+        err, img, _ = _cli(jmain.main, assets, 'port-resumed-by-jax',
+                           ['--resume', str(ckpt)])
+    else:
+        err, img, _ = _cli(tmain.main, assets, 'jax-resumed-by-port',
+                           ['--resume', str(ckpt), '--device', 'cpu'])
+    for e in (err, jerr):
+        assert re.search(r'^resumed at 6 spp from ', e, re.M), e
+        assert re.search(r'^rendered 32x24 @ 7 spp in ', e, re.M), e
+    same = (img == jimg).all(axis=2).mean()
+    assert same >= 0.99, same
+    np.testing.assert_allclose(_energy(err), _energy(jerr), rtol=1e-4)
+
+
+@pytest.mark.parametrize('extra', [['--shard'], ['--scene', 'scene.chai']],
+                         ids=lambda e: e[0].lstrip('-'))
 def test_unported_options_exit_nonzero(extra, capsys):
     assert tmain.main([*extra, '--device', 'cpu']) != 0
     assert 'not ported yet' in capsys.readouterr().err

@@ -1,11 +1,14 @@
 """The port runs without JAX and without the JAX package: in a fresh
 interpreter where ``import jax`` fails, import the port, build the small
-room, render 16x8 on the CPU, run the port's CLI on ``outside`` at 16x8 on
-the CPU, run the eight probe modules of ``cuda_pathtracer_tpu_torch/tools``
-on their plain versions (``lab_v1_probe`` builds its scene and waves with
-the port alone), and check that no module of jax or of
-``cuda_pathtracer_tpu`` was loaded. A scan of the port's sources and ``chip_smoke.py`` finds no import
-of ``cuda_pathtracer_tpu``."""
+room, render 16x8 on the CPU (path tracer and Whitted raytracer), run the
+port's CLI on ``outside`` at 16x8 on the CPU (path mode with a checkpoint,
+a resume of it, and ray mode), run the eight probe modules of
+``cuda_pathtracer_tpu_torch/tools`` on their plain versions
+(``lab_v1_probe`` builds its scene and waves with the port alone), and check
+that no module of jax, of ``cuda_pathtracer_tpu`` or of PIL was loaded. A
+scan of the port's sources and ``chip_smoke.py`` finds no import of
+``cuda_pathtracer_tpu`` and none of PIL (the machine with the card has no
+PIL)."""
 import os
 import re
 import subprocess
@@ -17,6 +20,7 @@ SCRIPT = r'''
 import os
 import sys
 sys.modules['jax'] = None          # any "import jax" now raises ImportError
+sys.modules['PIL'] = None          # and so does "import PIL"
 sys.path[:0] = [REPO, HERE]
 import cuda_pathtracer_tpu_torch
 from cuda_pathtracer_tpu_torch import bridge
@@ -31,11 +35,20 @@ pt.render(cam)
 energy, has_nan, has_neg = pt.energy()
 assert energy > 0 and not has_nan and not has_neg, (energy, has_nan, has_neg)
 assert pt.image(blur=True).shape == (8, 16, 3)
+from cuda_pathtracer_tpu_torch.models.raytracer import Raytracer
+rt = Raytracer(build_room(scene, builder.add_cube), 16, 8, device='cpu')
+rt.render(cam)
+frame = rt.frame
+assert frame.shape == (128, 3) and bool((frame >= 0).all()) and float(frame.sum()) > 0
 from cuda_pathtracer_tpu_torch.__main__ import main
-rc = main(['--scene', 'outside', '--width', '16', '--height', '8', '--spp',
-           '1', '--device', 'cpu', '--out', OUT + '/o.png', '--state',
-           OUT + '/s.txt'])
+common = ['--scene', 'outside', '--width', '16', '--height', '8', '--device',
+          'cpu', '--out', OUT + '/o.png', '--state', OUT + '/s.txt']
+rc = main(common + ['--spp', '1', '--checkpoint', OUT + '/c.npz'])
 assert rc == 0 and os.path.getsize(OUT + '/o.png') > 0
+rc = main(common + ['--spp', '7', '--resume', OUT + '/c.npz'])
+assert rc == 0
+rc = main(common + ['--mode', 'ray', '--out', OUT + '/r.png'])
+assert rc == 0 and os.path.getsize(OUT + '/r.png') > 0
 import contextlib, io
 from cuda_pathtracer_tpu_torch.tools import (
     bf16_probe, decision_probe, gather_probe, lab_v1_probe, onehot_probe,
@@ -47,8 +60,9 @@ for probe in (gather_probe, bf16_probe, step_probe, onehot_probe,
         assert probe.main(['--device', 'cpu']) == 0, probe.__name__
     assert 'ok=True' in text.getvalue(), text.getvalue()
 loaded = sorted(m for m in sys.modules
-                if (m in ('jax', 'cuda_pathtracer_tpu')
-                    or m.startswith(('jax.', 'jaxlib', 'cuda_pathtracer_tpu.')))
+                if (m in ('jax', 'cuda_pathtracer_tpu', 'PIL')
+                    or m.startswith(('jax.', 'jaxlib', 'cuda_pathtracer_tpu.',
+                                     'PIL.')))
                 and sys.modules[m] is not None)
 assert not loaded, loaded
 print('OK', energy)
@@ -68,13 +82,16 @@ def test_port_imports_and_renders_without_jax(tmp_path):
 
 def test_port_sources_import_nothing_of_the_jax_package():
     repo = os.path.dirname(HERE)
-    pat = re.compile(r'^\s*(from|import)\s+cuda_pathtracer_tpu([.\s]|$)',
+    pat = re.compile(r'^\s*(from|import)\s+(cuda_pathtracer_tpu|PIL)([.\s]|$)',
                      re.M)
     files = [os.path.join(repo, 'chip_smoke.py')]
     for root, _, names in os.walk(os.path.join(repo,
                                                'cuda_pathtracer_tpu_torch')):
         files += [os.path.join(root, n) for n in names if n.endswith('.py')]
     assert len(files) > 30
+    assert {'raytracer.py', 'display.py', 'checkpoint.py', 'focus.py',
+            'keyboard.py', 'profiling.py'} <= {os.path.basename(f)
+                                                for f in files}
     bad = []
     for f in files:
         with open(f) as fh:
