@@ -3,8 +3,8 @@
     python3 chip_smoke.py
 
 Builds the twelve hand-written CUDA kernels from ``cuda_pathtracer_tpu_torch/
-csrc`` and drives the port's render paths once at full size (phases 1-3),
-then the eight probe kernels' sweeps (phase 4):
+csrc`` and drives the port's render paths once at full size (phases 1-3 and
+5), then the eight probe kernels' sweeps (phase 4, run last):
 
 1. the converge path: the sibenik scene at 1920x1080, one clear frame, 4
    converge samples (32 bounces, NEE, guiding training) and the blurred
@@ -71,6 +71,26 @@ inputs (for the traversals, the node and leaf visits of the plain walks).
    per probe is printed with its Hopper question's table (dependent row
    reads by table size, SASS counts, ns per step, visit or packet-step,
    the walk beside the port's traversals on the same rays).
+5. the other scenes (``run_scenes``, before the probes), at 1920x1080, each
+   run with its launch counts set to 0 just before it and read just after:
+   (a) ``minecraft`` (the voxel world, 70,328 triangles) with the JAX golden
+   ``minecraft_guided`` camera and guiding on: a clear frame, 4 converge
+   samples and the blurred display; ``traverse``, ``guiding_scatter`` and
+   ``blur`` must launch. (b) ``2mtris`` (the procedural statue, 2,000,772
+   triangles, its merged table past the L2): the host build by part (mesh,
+   BVH with the native builder's route and flags, wide collapse and tables,
+   upload), a clear frame and 2 converge samples on v2, one profiled sample
+   (Mrays/s over busy time), then one depth-7 Whitted frame whose level-0
+   closest-hit and shadow waves are held to the plain walks on v2 and on
+   v1 (``hold_level0``). On both scenes the first band's primary, shadow
+   and bounce-1 waves of the first converge sample are held to the plain
+   walk (found, t and gid bit-identical) and printed with their visits per
+   live ray and ns per visit beside sibenik's same waves. (c) a ``.chai``
+   script (a user function, a loop, a diffuse and an emissive material, a
+   plane, a missing model) through ``python -m cuda_pathtracer_tpu_torch
+   --scene s.chai --width 1920 --height 1080 --spp 2 --blur``, in this
+   process; its image must equal bit for bit the same scene built through
+   the Scene API and rendered by the same steps.
 
 Prints the card's name and power limit, the build time, per-phase lines,
 then one JSON line of per-kernel results, the card line, and as its last line
@@ -146,6 +166,11 @@ LOOP_WIDTH, LOOP_HEIGHT, LOOP_FRAMES = 640, 480, 30
 OUTSIDE_STATE = '0|4|-17\n0|-0.2|1\n1.5\n12\n0.02\n'
 OUTSIDE_EYE = [0.0, 4.0, -17.0]
 SIBENIK_CAMERA = ([0.0, 5.0, -16.0], [0.0, 0.0, 1.0], 1.5, 12.0, 0.0)
+# minecraft: the JAX golden minecraft_guided's camera
+# (tests/test_goldens_configs.py); 2mtris: 5 units in front of the statue
+# (12 tall, radius 2.1), which then covers about half of the frame
+MINECRAFT_CAMERA = ([0.0, 6.0, -14.0], [0.0, -0.15, 1.0], 1.5, 10.0, 0.0)
+STATUE_CAMERA = ([0.0, 6.0, -5.0], [0.0, 0.0, 1.0], 1.5, 5.0, 0.0)
 
 # FP32 operations per visit, as the kernels do them: an inner visit slab-tests
 # 16 slots (6 mul, 6 sub, 6 min/max, 4 for the tmin/tmax reductions, 1 max,
@@ -207,6 +232,409 @@ def traversal_work(n_rays: int, n_out: int, stats: dict, row_bytes: int = 512):
     n_bytes = n_rays * (12 + 12 + 4 + 1 + 1) + n_rays * n_out + rows * row_bytes
     n_ops = stats['inner'] * SLAB_OPS + stats['leaf'] * LEAF_OPS
     return n_bytes, n_ops
+
+
+def wave_line(name, wave, n_live, stats, ms, pms, n_bytes, n_ops, floor):
+    b = bound(n_bytes, n_ops)[0]
+    visits = stats['inner'] + stats['leaf']
+    return (f'{name} {wave}: {stats["inner"]} inner + {stats["leaf"]} leaf '
+            f'visits, {visits / max(n_live, 1):.2f} per live ray | kernel '
+            f'{ms:.4f} ms, with no ray live {floor:.4f} ms, plain '
+            f'{pms:.1f} ms, bound {b:.4f} ms, share of bound '
+            f'{b / ms:.3f}')
+
+
+def hold_merged(label: str, wave: str, saved, failures: list) -> dict:
+    """The v2 kernel on one recorded ``traverse_merged`` call against its
+    plain walk on the card: found, t and gid bit-identical, u and v within
+    1e-6. The kernel is timed over 10 runs, and so is the same launch with
+    no ray live (the launch floor). Returns the wave's figures and the
+    kernel's (t, gid, found)."""
+    import torch
+    from cuda_pathtracer_tpu_torch.ops import traverse_packet2 as tp2
+    (table, ro, rd, t0, live, stop), kw = saved
+    want_uv = kw.get('want_uv', False)
+    n_live = int(live.sum())
+    dead = torch.zeros_like(live)
+    ms, (t, gid, found, u, v) = cuda_ms(
+        lambda: tp2.traverse_merged(table, ro, rd, t0, live, stop, want_uv),
+        reps=10, warmup=1, preroll=True)
+    floor, _ = cuda_ms(
+        lambda: tp2.traverse_merged(table, ro, rd, t0, dead, stop, want_uv),
+        reps=10, warmup=1, preroll=True)
+    st = {}
+    pms, (pt_, pgid, pfound, pu, pv) = cuda_ms(
+        lambda: tp2.traverse_merged_ref(table, ro, rd, t0, live, stop,
+                                        want_uv, stats=st))
+    same_found = bool(torch.equal(found, pfound))
+    t_bits = int((t.view(torch.int32) != pt_.view(torch.int32)).sum())
+    gid_diff = int((gid != pgid).sum())
+    hits = int(found.sum())
+    err = float((t - pt_)[found].abs().max()) if bool(found.any()) else 0.0
+    uv_err = (float(torch.maximum((u - pu).abs(),
+                                  (v - pv).abs())[found].max())
+              if want_uv and bool(found.any()) else 0.0)
+    n_bytes, n_ops = traversal_work(ro.shape[0], 9 + (8 if want_uv else 0),
+                                    st)
+    log(f'{label} {wave}: {ro.shape[0]} rays, {n_live} live, {hits} hits')
+    log('  ' + wave_line(label, wave, n_live, st, ms, pms, n_bytes, n_ops,
+                         floor))
+    log(f'  found equal={same_found}, t bit mismatches={t_bits}, gid '
+        f'mismatches={gid_diff}, max|dt|={err}, max|duv|={uv_err}')
+    if not same_found or t_bits:
+        failures.append(f'{label} {wave}: kernel disagrees with plain')
+    if gid_diff:
+        failures.append(f'{label} {wave}: {gid_diff} gid mismatches')
+    if uv_err > 1e-6:
+        failures.append(f'{label} {wave}: uv differ by {uv_err}')
+    visits = st['inner'] + st['leaf']
+    return dict(ms=ms, floor=floor, plain_ms=pms, err=err, bytes=n_bytes,
+                ops=n_ops, rays=ro.shape[0], n_live=n_live, hits=hits,
+                visits=visits, share=bound(n_bytes, n_ops)[0] / ms,
+                out=(t, gid, found))
+
+
+def converge(pt, cam, samples: int, label: str, kernels_on: tuple,
+             failures: list) -> dict:
+    """A clear frame and ``samples`` converge samples of ``pt`` in the
+    engine's default schedule, then the blurred display image, with the
+    launch counts set to 0 just before and read just after: every kernel of
+    ``kernels_on`` must have launched, and no plain version may have run on
+    the card. Records the first band's primary, shadow and bounce-1 waves of
+    the first converge sample. Checks the energy (finite, > 0, no NaN or
+    negative value) and the image. Returns the recorded waves, the launches,
+    the energy and the ms and rays of each converge sample."""
+    import torch
+    from cuda_pathtracer_tpu_torch.ops import dispatch as dispatch_mod
+    from cuda_pathtracer_tpu_torch.ops import kernels
+    from cuda_pathtracer_tpu_torch.utils.frame_profile import ScheduleTap
+    phase = {'sample': None}
+    calls = []
+
+    def pick(args, kw):
+        if phase['sample'] != 1 or sched.bands[-1]['band'] != 0:
+            return None
+        calls.append(args[1].shape[0])
+        return ('primary', 'shadow', 'bounce-1')[len(calls) - 1] \
+            if len(calls) <= 3 else None
+
+    sample_ms, sample_rays = [], []
+    kernels.reset_counts()
+    with ScheduleTap() as sched, \
+            Recorder(dispatch_mod, 'traverse_merged', pick=pick) as trav:
+        for i in range(1 + samples):
+            phase['sample'] = i
+            rays0 = int(pt.rays_traced)
+            ms, _ = cuda_ms(lambda: pt.render(cam, should_clear=(i == 0)))
+            rays = int(pt.rays_traced) - rays0
+            log(f'{label} sample {i} ({"clear" if i == 0 else "converge"}): '
+                f'{ms:.1f} ms, {rays} rays, {rays / ms / 1e3:.2f} Mrays/s '
+                f'over the span')
+            if i:
+                sample_ms.append(ms)
+                sample_rays.append(rays)
+        blur_ms, img = cuda_ms(lambda: pt.image(blur=True))
+    torch.cuda.synchronize()
+    got = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    plain = {k: v for k, v in kernels.PLAIN_ON_CUDA.items() if v}
+    energy, has_nan, has_neg = pt.energy()
+    log(f'{label}: {pt.bands} bands of {pt.band_h} rows; launches {got}; '
+        f'plain versions on CUDA {plain}; {samples} converge samples '
+        f'{sum(sample_ms) / samples:.1f} ms/sample, '
+        f'{sum(sample_rays) / sum(sample_ms) / 1e3:.2f} Mrays/s over the '
+        f'span; image(blur=True) {blur_ms:.2f} ms; energy={energy:.4f} '
+        f'nan={has_nan} neg={has_neg}')
+    for name in kernels_on:
+        if got.get(name, 0) <= 0:
+            failures.append(f'{label}: {name} did not launch')
+    if got.get('traverse_packet'):
+        failures.append(f'{label}: traverse_packet launched on v2')
+    if plain:
+        failures.append(f'{label}: plain versions on CUDA {plain}')
+    if not (0 < energy < float('inf')) or has_nan or has_neg:
+        failures.append(f'{label}: energy {energy} nan={has_nan} '
+                        f'neg={has_neg}')
+    if tuple(img.shape) != (pt.height, pt.width, 3) or not bool(
+            torch.isfinite(img).all()):
+        failures.append(f'{label}: blurred image not finite '
+                        f'[{pt.height}, {pt.width}, 3]')
+    return dict(saved=trav.saved, launches=got, energy=energy,
+                sample_ms=sample_ms, sample_rays=sample_rays)
+
+
+def hold_converge_waves(label: str, run: dict, failures: list, beside=None):
+    """``hold_merged`` on the primary, shadow and bounce-1 waves that
+    ``converge`` recorded, with each wave's kernel time above its launch
+    floor per visit of the plain walk, beside ``beside``'s same waves."""
+    out = {}
+    for wave in ('primary', 'shadow', 'bounce-1'):
+        if wave not in run['saved']:
+            failures.append(f'{label}: no {wave} wave recorded')
+            continue
+        h = out[wave] = hold_merged(label, wave, run['saved'][wave],
+                                    failures)
+        del h['out']
+    for wave, h in out.items():
+        line = (f'  {label} {wave}: {h["n_live"]} live of {h["rays"]}, '
+                f'{h["visits"] / max(h["n_live"], 1):.2f} visits per live ray, '
+                f'kernel {h["ms"]:.4f} ms (floor {h["floor"]:.4f}), '
+                f'{ns_per_visit(h):.4f} ns above the floor per visit, '
+                f'share of bound {h["share"]:.3f}')
+        if beside and wave in beside:
+            b = beside[wave]
+            line += (f' | sibenik: {b["visits"] / max(b["n_live"], 1):.2f} '
+                     f'visits per live ray, kernel {b["ms"]:.4f} ms, '
+                     f'{ns_per_visit(b):.4f} ns per visit')
+        log(line)
+    return out
+
+
+def ns_per_visit(h: dict) -> float:
+    """Kernel time above the launch floor per visit of the plain walk, in
+    ns (nan on a wave with no visit)."""
+    return (h['ms'] - h['floor']) / h['visits'] * 1e6 if h['visits'] \
+        else float('nan')
+
+
+# the .chai script of phase 5c: a user function, a loop, a diffuse and an
+# emissive material, a plane, and a model the asset path lacks (the
+# cathedral stands in); chai_twin builds the same scene through the API
+CHAI_SCRIPT = """
+def pillar(model, x, z, h) {
+    var p = GameObject(model)
+    p.position = make_float3(x, h - 3.0, z)
+    p.scale = make_float3(0.5, h, 0.5)
+    p.rotation.y = x * 0.1
+    return p
+}
+var stone = scene_add_material(DiffuseMaterial(make_float3(0.7, 0.6, 0.5)))
+var lamp_m = DiffuseMaterial(make_float3(1.0))
+lamp_m.emission = make_float3(8.0, 7.0, 6.0)
+var lamp = scene_add_material(lamp_m)
+var cube = scene_add_model("cube.obj", 1.0, make_float3(0, 0, 0),
+                           make_float3(0, 0, 0), stone, false)
+for (var i = 0; i < 4; ++i) {
+    scene_add_object(pillar(cube, -4.5 + 3 * i, 2.0, 1.0 + 0.5 * i))
+}
+var lamp_cube = scene_add_model("cube.obj", 1.0, make_float3(0, 0, 0),
+                                make_float3(0, 0, 0), lamp, false)
+var light = GameObject(lamp_cube)
+light.position = make_float3(0, 5, 0)
+light.scale = make_float3(1.5, 0.2, 1.5)
+scene_add_object(light)
+scene_add_plane(Plane(make_float3(0, -1, 0), -3.0, stone))
+var hall = scene_add_model("not_in_the_repo.obj", 1.0, make_float3(0, 0, 0),
+                           make_float3(0, 0, 0), stone, false)
+var h = GameObject(hall)
+h.position.y = 12
+scene_add_object(h)
+"""
+CHAI_STATE = '0|2|-9\n0|-0.1|1\n1.5\n9\n0.02\n'
+
+
+def chai_twin(asset_dir: str):
+    """CHAI_SCRIPT's scene, built through the Scene API."""
+    from cuda_pathtracer_tpu_torch.scene import procedural
+    from cuda_pathtracer_tpu_torch.scene.scene import (GameObject, Material,
+                                                       Plane, Scene)
+    scene = Scene(asset_dirs=[asset_dir])
+    stone = scene.add_material(Material.DIFFUSE((0.7, 0.6, 0.5)))
+    lamp_m = Material.DIFFUSE((1.0, 1.0, 1.0))
+    lamp_m.emission = (8.0, 7.0, 6.0)
+    lamp = scene.add_material(lamp_m)
+    cube = scene.add_model('cube.obj', 1.0, (0, 0, 0), (0, 0, 0), stone)
+    for i in range(4):
+        x, h = -4.5 + 3 * i, 1.0 + 0.5 * i
+        scene.add_object(GameObject(cube, position=[x, h - 3.0, 2.0],
+                                    scale=[0.5, h, 0.5],
+                                    rotation=[0.0, x * 0.1, 0.0]))
+    lamp_cube = scene.add_model('cube.obj', 1.0, (0, 0, 0), (0, 0, 0), lamp)
+    scene.add_object(GameObject(lamp_cube, position=[0, 5, 0],
+                                scale=[1.5, 0.2, 1.5]))
+    scene.add_plane(Plane((0.0, -1.0, 0.0), -3.0, stone))
+    hall = procedural.add_cathedral(scene, stone)
+    scene.add_object(GameObject(hall, position=[0, 12, 0]))
+    scene.finalize()
+    return scene
+
+
+def run_scenes(cli_main, sib_waves: dict, tmp: str, failures: list) -> dict:
+    """Phase 5: the scenes of slice 9 at 1920x1080. (a) minecraft converge
+    with guiding on; (b) 2mtris, its build by part, converge on v2 and a
+    depth-7 Whitted frame with its level-0 waves held on v2 and v1; (c) a
+    ``.chai`` script through the CLI, held to its twin built in process.
+    Returns {run: launches}."""
+    import torch
+    from cuda_pathtracer_tpu_torch.core.camera import Camera
+    from cuda_pathtracer_tpu_torch.models import raytracer as rt_mod
+    from cuda_pathtracer_tpu_torch.models.pathtracer import Pathtracer
+    from cuda_pathtracer_tpu_torch.ops import dispatch as dispatch_mod
+    from cuda_pathtracer_tpu_torch.ops import kernels
+    from cuda_pathtracer_tpu_torch.scene import builder
+    from cuda_pathtracer_tpu_torch.scene import scene as scene_mod
+    from cuda_pathtracer_tpu_torch.scene import state as state_mod
+    from cuda_pathtracer_tpu_torch.utils import profiling
+    counts = {}
+
+    # (a) minecraft, the minecraft_guided camera, guiding on (the default)
+    t = time.perf_counter()
+    scene = builder.get_scene('minecraft')
+    pt = Pathtracer(scene, WIDTH, HEIGHT, device='cuda')
+    torch.cuda.synchronize()
+    log(f'scene: minecraft {len(scene._tri_mat)} triangles, merged BVH '
+        f'{pt.dyn.packet_merged.shape[0]} rows '
+        f'({pt.dyn.packet_merged.nbytes / 1e6:.1f} MB), depth {pt.dyn.depth}; '
+        f'host build + upload {time.perf_counter() - t:.2f} s')
+    cam = Camera.create(*MINECRAFT_CAMERA, device='cuda')
+    run = converge(pt, cam, CONVERGE_SAMPLES, 'minecraft', SIBENIK_KERNELS,
+                   failures)
+    counts['minecraft'] = run['launches']
+    hold_converge_waves('traverse minecraft', run, failures, sib_waves)
+    del pt, scene, run
+    torch.cuda.empty_cache()
+
+    # (b) 2mtris: the build by part
+    spent = {}
+
+    def timed(name, part):
+        fn = getattr(scene_mod, name)
+
+        def wrapped(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            key = (stage['now'], part)
+            spent[key] = spent.get(key, 0.0) + time.perf_counter() - t0
+            return out
+        return patched(scene_mod, name, wrapped)
+    stage = {'now': 'scene'}
+    with contextlib.ExitStack() as es:
+        es.enter_context(timed('build_bvh', 'bvh'))
+        for name in ('thread_bvh', 'build_wide_bvh', 'build_world_bvh',
+                     'build_world_wide', 'split_packet_tables',
+                     'build_merged_table'):
+            es.enter_context(timed(name, 'tables'))
+        t = time.perf_counter()
+        scene = builder.get_scene('2mtris')
+        t_scene = time.perf_counter() - t
+        stage['now'] = 'upload'
+        t = time.perf_counter()
+        pt = Pathtracer(scene, WIDTH, HEIGHT, device='cuda')
+        torch.cuda.synchronize()
+        t_upload = time.perf_counter() - t
+    bvh_s = spent.get(('scene', 'bvh'), 0.0)
+    tables_s = sum(v for (_, part), v in spent.items() if part == 'tables')
+    mesh_s = t_scene - bvh_s - spent.get(('scene', 'tables'), 0.0)
+    upload_s = t_upload - spent.get(('upload', 'tables'), 0.0) \
+        - spent.get(('upload', 'bvh'), 0.0)
+    merged = pt.dyn.packet_merged
+    n_tris = len(scene._tri_mat)
+    log(f'scene: 2mtris {n_tris} triangles; build on the host by part: mesh '
+        f'{mesh_s:.2f} s, BVH {bvh_s:.2f} s ({native_route()}), wide collapse '
+        f'and tables {tables_s:.2f} s, to_device {upload_s:.2f} s; merged '
+        f'table {merged.shape[0]} rows x {merged.shape[1] * 4} B = '
+        f'{merged.nbytes / 1e6:.1f} MB, split {pt.dyn.packet_inner.shape[0]} '
+        f'inner + {pt.dyn.packet_leaf.shape[0]} leaf rows, depth '
+        f'{pt.dyn.depth}')
+    if n_tris < 2_000_000:
+        failures.append(f'2mtris: {n_tris} triangles')
+    cam = Camera.create(*STATUE_CAMERA, device='cuda')
+    run = converge(pt, cam, 2, '2mtris', SIBENIK_KERNELS, failures)
+    counts['2mtris'] = run['launches']
+    hold_converge_waves('traverse 2mtris', run, failures, sib_waves)
+    del run
+    rays0 = int(pt.rays_traced)
+    shares = profiling.device_op_shares(lambda: pt.render(cam))
+    rays = int(pt.rays_traced) - rays0
+    busy = shares['_busy_ms']
+    trav = sum(ms for name, ms in shares['_kernels']
+               if profiling.categorize_kernel(name).startswith('traverse'))
+    log(f'2mtris converge sample (profiled): {rays} rays, busy {busy:.2f} ms, '
+        f'{rays / busy / 1e3:.2f} Mrays/s over busy time; traversal '
+        f'{trav:.3f} ms ({trav / busy:.3f} of busy)')
+    del pt
+    torch.cuda.empty_cache()
+
+    # (b) 2mtris, Whitted: one depth-7 frame, level 0 held on v2 and v1
+    kernels.reset_counts()
+    rt = rt_mod.Raytracer(scene, WIDTH, HEIGHT, device='cuda')
+    whitted_frame(rt, cam, False, '2mtris v2 depth 7', failures)
+    hold_level0(rt, cam, '2mtris v2 depth 7', failures)
+    dispatch_mod.PACKET_V1 = True
+    try:
+        hold_level0(rt, cam, '2mtris v1 depth 7', failures)
+    finally:
+        dispatch_mod.PACKET_V1 = False
+    torch.cuda.synchronize()
+    counts['2mtris-whitted'] = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    if kernels.LAUNCHES['traverse'] <= 0 or \
+            kernels.LAUNCHES['traverse_packet'] <= 0:
+        failures.append(f'2mtris Whitted: launches {kernels.LAUNCHES}')
+    del rt, scene
+    torch.cuda.empty_cache()
+
+    # (c) a .chai script through the CLI, and its twin in process
+    from _torch_room import write_cube_obj
+    write_cube_obj(tmp)
+    script, state = os.path.join(tmp, 's.chai'), os.path.join(tmp, 'chai.txt')
+    with open(script, 'w') as f:
+        f.write(CHAI_SCRIPT)
+    with open(state, 'w') as f:
+        f.write(CHAI_STATE)
+    args = ['--scene', script, '--width', str(WIDTH), '--height', str(HEIGHT),
+            '--spp', '2', '--blur', '--device', 'cuda', '--asset-dir', tmp,
+            '--state', state, '--out', os.path.join(tmp, 'chai.png')]
+    kernels.reset_counts()
+    t = time.perf_counter()
+    rc, text, app, _ = run_cli(cli_main, args, False)
+    torch.cuda.synchronize()
+    got = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    counts['chai'] = got
+    m = re.search(r'^energy (\S+) nan=(\w+) neg=(\w+)$', text, re.M)
+    log(f'cli --scene s.chai: rc={rc}, {time.perf_counter() - t:.2f} s wall; '
+        f'launches {got}')
+    if rc != 0 or m is None or not (0 < float(m.group(1)) < float('inf')) \
+            or m.group(2) != 'False' or m.group(3) != 'False':
+        failures.append(f'cli --scene s.chai: rc={rc}, '
+                        f'{m.group(0) if m else "no energy line"}')
+    for name in ('traverse', 'blur'):
+        if got.get(name, 0) <= 0:
+            failures.append(f'cli --scene s.chai: {name} did not launch')
+    if any(kernels.PLAIN_ON_CUDA.values()):
+        failures.append(f'cli --scene s.chai: plain versions on CUDA '
+                        f'{kernels.PLAIN_ON_CUDA}')
+    cli_img = app.image(blur=True)
+    del app
+    scene = chai_twin(tmp)
+    camera = state_mod.read_state(state, device='cuda')
+    twin = Pathtracer(scene, WIDTH, HEIGHT, device='cuda')
+    scene.update(None, 0.0)
+    twin.render(camera, 0.0, 0.0, should_clear=True)
+    while twin.sample_idx < 2:
+        twin.render(camera, 0.0, 0.0, should_clear=False)
+    twin.finish()
+    img = twin.image(blur=True)
+    diff = int((img.view(torch.int32) != cli_img.view(torch.int32)).any(
+        dim=-1).sum())
+    log(f'cli --scene s.chai vs its twin built through the Scene API: '
+        f'{len(scene._tri_mat)} triangles, {diff} of {WIDTH * HEIGHT} pixels '
+        f'differ (bit for bit)')
+    if diff:
+        failures.append(f'cli --scene s.chai: {diff} pixels differ from '
+                        f'its twin')
+    del twin, scene
+    torch.cuda.empty_cache()
+    return counts
+
+
+def native_route() -> str:
+    """How the host builds BVHs: the native builder with OpenMP, without
+    it, or numpy, with the flags."""
+    from cuda_pathtracer_tpu_torch.accel import native
+    flags = native.build_flags()
+    if flags is None:
+        return 'numpy (no native library)'
+    kind = 'OpenMP' if '-fopenmp' in flags else 'serial, no OpenMP'
+    return f'native, {kind}: {" ".join(flags)}'
 
 
 def run_probes(launches: dict, results: dict, failures: list):
@@ -782,12 +1210,14 @@ def main() -> int:
 
     t = time.perf_counter()
     ok = native.available()
-    log(f'native BVH builder: available={ok} (build '
-        f'{time.perf_counter() - t:.2f} s); the host BVH builds with '
-        f'{"it" if ok else "the numpy fallback"}')
-    if not ok:
+    log(f'native BVH builder: {native_route()} (build '
+        f'{time.perf_counter() - t:.2f} s)')
+    if not ok or '-fopenmp' not in native.build_flags():
         for line in native.build_log().splitlines()[-8:]:
             log('  g++: ' + line)
+    if not ok:
+        failures.append('native BVH builder: not built; the host builds '
+                        'BVHs with numpy')
 
     # ---- path 1: sibenik converge at full size (v2), default bands ----
     t = time.perf_counter()
@@ -893,61 +1323,25 @@ def main() -> int:
     tables = tp1.PacketTables(pt.dyn.packet_inner, pt.dyn.packet_leaf,
                               pt.dyn.depth)
 
-    def wave_line(name, wave, n_live, stats, ms, pms, n_bytes, n_ops, floor):
-        b = bound(n_bytes, n_ops)[0]
-        visits = stats['inner'] + stats['leaf']
-        return (f'{name} {wave}: {stats["inner"]} inner + {stats["leaf"]} leaf '
-                f'visits, {visits / max(n_live, 1):.2f} per live ray | kernel '
-                f'{ms:.4f} ms, with no ray live {floor:.4f} ms, plain '
-                f'{pms:.1f} ms, bound {b:.4f} ms, share of bound '
-                f'{b / ms:.3f}')
-
+    sib_waves = {}
     for wave in ('primary', 'shadow', 'bounce-1', 'tail-1'):
         if wave not in trav.saved:
             failures.append(f'traverse: no {wave} wave captured')
             continue
         (table, ro, rd, t0, live, stop), kw = trav.saved[wave]
-        want_uv = kw.get('want_uv', False)
         any_hit = bool(stop.all())
-        n_live = int(live.sum())
         dead = torch.zeros_like(live)
-        ms, (t, gid, found, u, v) = cuda_ms(
-            lambda: tp2.traverse_merged(table, ro, rd, t0, live, stop, want_uv),
-            reps=10, warmup=1, preroll=True)
-        floor, _ = cuda_ms(
-            lambda: tp2.traverse_merged(table, ro, rd, t0, dead, stop, want_uv),
-            reps=10, warmup=1, preroll=True)
-        st2 = {}
-        pms, (pt_, pgid, pfound, pu, pv) = cuda_ms(
-            lambda: tp2.traverse_merged_ref(table, ro, rd, t0, live, stop,
-                                            want_uv, stats=st2))
-        same_found = bool(torch.equal(found, pfound))
-        t_bits = int((t.view(torch.int32) != pt_.view(torch.int32)).sum())
-        gid_diff = int((gid != pgid).sum())
-        hits = int(found.sum())
-        err = float((t - pt_)[found].abs().max()) if bool(found.any()) else 0.0
-        uv_err = (float(torch.maximum((u - pu).abs(),
-                                      (v - pv).abs())[found].max())
-                  if want_uv and bool(found.any()) else 0.0)
-        n_bytes, n_ops = traversal_work(ro.shape[0], 9 + (8 if want_uv else 0),
-                                        st2)
-        log(f'traverse {wave}: {ro.shape[0]} rays, {n_live} live, {hits} hits')
-        log('  ' + wave_line('traverse', wave, n_live, st2, ms, pms, n_bytes,
-                             n_ops, floor))
-        log(f'  found equal={same_found}, t bit mismatches={t_bits}, gid '
-            f'mismatches={gid_diff}, max|dt|={err}, max|duv|={uv_err}')
-        if not same_found or t_bits:
-            failures.append(f'traverse {wave}: kernel disagrees with plain')
-        if gid_diff:
-            failures.append(f'traverse {wave}: {gid_diff} gid mismatches')
-        if uv_err > 1e-6:
-            failures.append(f'traverse {wave}: uv differ by {uv_err}')
+        h = sib_waves[wave] = hold_merged('traverse', wave, trav.saved[wave],
+                                          failures)
+        t, gid, found = h['out']
+        hits = h['hits']
+        n_live = h['n_live']
         a = acc['traverse']
-        a['ms'] += ms
-        a['plain_ms'] += pms
-        a['err'] = max(a['err'], err)
-        a['bytes'] += n_bytes
-        a['ops'] += n_ops
+        a['ms'] += h['ms']
+        a['plain_ms'] += h['plain_ms']
+        a['err'] = max(a['err'], h['err'])
+        a['bytes'] += h['bytes']
+        a['ops'] += h['ops']
 
         # v1 on the same wave (the dispatch walks any-hit waves cheap)
         ms1, (t1, gid1, found1) = cuda_ms(
@@ -1237,6 +1631,12 @@ def main() -> int:
                 or runs['cuda'][5] <= 1:
             failures.append(f'tail room at spp {spp}: the card and the CPU '
                             f'disagree, or level 1 took one round per band')
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        scenes = run_scenes(cli_main, sib_waves, tmp, failures)
+        log(f'phase 5 (minecraft, 2mtris, .chai): '
+            f'{time.perf_counter() - t:.1f} s wall; launches per run {scenes}')
 
     run_probes(launches, results, failures)
 

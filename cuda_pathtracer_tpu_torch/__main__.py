@@ -20,8 +20,9 @@ Usage:
   python -m cuda_pathtracer_tpu_torch --scene sibenik --mode ray --out ray.png
   python -m cuda_pathtracer_tpu_torch --scene outside --serve 8000
 
-Not ported yet, and refused with a non-zero exit: ``--shard`` and scene
-scripts (and any scene but ``outside`` and ``sibenik``).
+``--scene`` takes a built-in scene (``outside``, ``sibenik``, ``minecraft``,
+``2mtris``) or the path of a ``.chai`` scene script. Not ported yet, and
+refused with a non-zero exit: ``--shard``.
 """
 from __future__ import annotations
 
@@ -38,7 +39,8 @@ def build_argparser():
         description='wavefront path tracer, PyTorch + CUDA port '
                     '(capabilities of HugoPeters1024/cuda_pathtracer)')
     p.add_argument('-s', '--scene', default='outside',
-                   help='built-in scene name (default: outside)')
+                   help='built-in scene name or path to a .chai script '
+                        '(default: outside)')
     p.add_argument('--width', type=int, default=640)
     p.add_argument('--height', type=int, default=480)
     p.add_argument('--spp', type=int, default=16,
@@ -87,11 +89,7 @@ def main(argv=None) -> int:
 
     print(f"Loading scene '{args.scene}', this might take a moment",
           file=sys.stderr)
-    try:
-        scene = get_scene(args.scene, asset_dirs=args.asset_dir + ['.'])
-    except ValueError as e:
-        print(f'cuda_pathtracer_tpu_torch: {e}', file=sys.stderr)
-        return 2
+    scene = get_scene(args.scene, asset_dirs=args.asset_dir + ['.'])
     camera = state_mod.read_state(args.state, device=args.device)
 
     if args.mode == 'ray':

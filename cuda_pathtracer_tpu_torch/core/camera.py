@@ -64,8 +64,8 @@ def generate_rays(cam: Camera, xs, ys, seeds, width: int, height: int):
     rand_state = _rng.make_state(seeds)
     r1, rand_state = _rng.rand(rand_state)
     r2, rand_state = _rng.rand(rand_state)
-    xf = (xs.to(torch.float32) + r1) / width
-    yf = (ys.to(torch.float32) + r2) / height
+    xf = vm.div(xs.to(torch.float32) + r1, width)
+    yf = vm.div(ys.to(torch.float32) + r2, height)
 
     lt, u, v = basis(cam, width, height)
     origin = _distort(cam, lt + xf[..., None] * u + yf[..., None] * v)
@@ -76,7 +76,7 @@ def generate_rays(cam: Camera, xs, ys, seeds, width: int, height: int):
 
     r3, rand_state = _rng.rand(rand_state)
     r4, rand_state = _rng.rand(rand_state)
-    offset_r = torch.sqrt(r3)
+    offset_r = vm.sqrt(r3)
     offset_a = r4 * (2.0 * PI)
     fx = offset_r * torch.sin(offset_a)
     fy = offset_r * torch.cos(offset_a)
@@ -89,22 +89,14 @@ def generate_rays(cam: Camera, xs, ys, seeds, width: int, height: int):
     return origin, direction, rand_state
 
 
-def _div(x, d: int):
-    """x / d rounded as one IEEE division on every device: PyTorch's CUDA
-    kernels divide by a Python scalar as a multiply by its reciprocal, an
-    ulp off the CPU's (and the JAX package's) quotient for many x when d is
-    not a power of two; a 0-d tensor on x's device divides exactly."""
-    return x / torch.tensor(float(d), dtype=torch.float32, device=x.device)
-
-
 def generate_rays_simple(cam: Camera, xs, ys, width: int, height: int):
     """Jitter-free pinhole rays, Camera::getRay(x, y) (src/types.h:660-667):
     the rays of the Whitted mode and of click-to-focus. Returns (origin[...,
-    3], direction[..., 3]). The pixel fractions divide exactly (``_div``):
+    3], direction[..., 3]). The pixel fractions divide exactly (``vm.div``):
     at a far checkerboard an ulp of ray direction moves the hit by more
     than a square."""
-    xf = _div(xs.to(torch.float32), width)
-    yf = _div(ys.to(torch.float32), height)
+    xf = vm.div(xs.to(torch.float32), width)
+    yf = vm.div(ys.to(torch.float32), height)
     lt, u, v = basis(cam, width, height)
     point = _distort(cam, lt + xf[..., None] * u + yf[..., None] * v)
     direction = vm.normalize(point - cam.eye)

@@ -22,8 +22,18 @@ def cross(a, b):
                         ax * by - ay * bx], dim=-1)
 
 
+def sqrt(x):
+    """The correctly rounded f32 square root on every device. The card's
+    ``torch.sqrt`` gives it; PyTorch's vectorized CPU one is an ulp off it
+    for some inputs, so on the CPU the f64 root is rounded to f32, which is
+    the IEEE f32 root (53 bits are more than 2 * 24 + 2)."""
+    if x.device.type != 'cpu':
+        return torch.sqrt(x)
+    return torch.sqrt(x.to(torch.float64)).to(torch.float32)
+
+
 def length(a):
-    return torch.sqrt(torch.clamp_min(dot(a, a), 0.0))
+    return sqrt(torch.clamp_min(dot(a, a), 0.0))
 
 
 def normalize(a, eps: float = 0.0):
@@ -31,6 +41,15 @@ def normalize(a, eps: float = 0.0):
     if eps:
         n = torch.clamp_min(n, eps)
     return a / n[..., None]
+
+
+def div(x, d: float):
+    """x / d for a Python number d, rounded as one IEEE division on every
+    device. PyTorch's CUDA kernels divide by a Python scalar as a multiply
+    by its reciprocal, an ulp off the CPU's (and the JAX package's)
+    quotient for many x when d is not a power of two; a 0-d f32 tensor on
+    x's device divides exactly. On the CPU the result is ``x / d``'s."""
+    return x / torch.tensor(float(d), dtype=torch.float32, device=x.device)
 
 
 def reflect(d, n):

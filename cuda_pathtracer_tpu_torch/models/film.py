@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import torch
 
+from ..core import vecmath as vm
 from ..ops.blur import blur_luminance
 
 
@@ -38,16 +39,18 @@ def display(lum, alb, n_samples: float, width: int, height: int,
     Returns f32[H, W, 3], bottom-row-first."""
     if blur:
         blurred = blur_luminance(lum, alb, n_samples, width, height)
-        lum_c = blurred / max(n_samples, 1.0)
+        lum_c = vm.div(blurred, max(n_samples, 1.0))
         alb_c = alb[:, :3] / torch.clamp_min(alb[:, 3:4], 1e-9)
         color = lum_c * alb_c
     else:
         color = lum[:, :3] / torch.clamp_min(lum[:, 3:4], 1e-9)
-    color = torch.sqrt(torch.clamp_min(color, 0.0))   # gamma 2.0
+    color = vm.sqrt(torch.clamp_min(color, 0.0))   # gamma 2.0
     img = color.reshape(height, width, 3)
     dev = lum.device
-    ys = (torch.arange(height, dtype=torch.float32, device=dev) + 0.5) / height - 0.5
-    xs = (torch.arange(width, dtype=torch.float32, device=dev) + 0.5) / width - 0.5
+    ys = vm.div(torch.arange(height, dtype=torch.float32, device=dev) + 0.5,
+                height) - 0.5
+    xs = vm.div(torch.arange(width, dtype=torch.float32, device=dev) + 0.5,
+                width) - 0.5
     vign = 1.0 - (xs[None, :] ** 2 + ys[:, None] ** 2)
     return img * vign[..., None]
 

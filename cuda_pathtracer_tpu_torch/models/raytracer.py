@@ -110,7 +110,7 @@ def _shade_level(scene, dyn, ro, rd, weight):
         from_light = pos - lpos
         facing = vm.dot(from_light, collider_normal) < 0.0
         d2 = vm.dot(from_light, from_light)
-        dist = torch.sqrt(torch.clamp_min(d2, 1e-20))
+        dist = vm.sqrt(torch.clamp_min(d2, 1e-20))
         fl = from_light / _f3(dist)
         sro = lpos + EPS * fl
         shadow_active = live & facing & (diffuse > 0.0)

@@ -35,10 +35,10 @@ def _to_world(sample, w):
 
 def hemisphere_cosine(normal, r0, r1):
     """Cosine-weighted hemisphere sample (src/kernels.h:390-406)."""
-    r = torch.sqrt(r0)
+    r = vm.sqrt(r0)
     theta = 2.0 * PI * r1
     sample = torch.stack([r * torch.cos(theta), r * torch.sin(theta),
-                          torch.sqrt(torch.clamp_min(1.0 - r0, 0.0))], dim=-1)
+                          vm.sqrt(torch.clamp_min(1.0 - r0, 0.0))], dim=-1)
     return _to_world(sample, normal)
 
 

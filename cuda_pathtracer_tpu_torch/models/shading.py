@@ -97,11 +97,11 @@ def _refract(rd, normal, pos, ior, absorption, inside, t):
     k = 1.0 - (eta * eta) * (1.0 - costi * costi)
     tir = k < 0.0
     refract_d = _f3(eta) * rd + normal * _f3(
-        eta * costi - torch.sqrt(torch.clamp_min(k, 0.0)))
+        eta * costi - vm.sqrt(torch.clamp_min(k, 0.0)))
     refract_d = vm.normalize(refract_d, eps=1e-12)
 
-    sinti = torch.sqrt(torch.clamp_min(1.0 - costi - costi, 0.0))
-    costt = torch.sqrt(torch.clamp_min(1.0 - eta * eta * sinti * sinti, 0.0))
+    sinti = vm.sqrt(torch.clamp_min(1.0 - costi - costi, 0.0))
+    costt = vm.sqrt(torch.clamp_min(1.0 - eta * eta * sinti * sinti, 0.0))
     spol = (n1 * costi - n2 * costt) / torch.clamp_min(n1 * costi + n2 * costt, 1e-9)
     ppol = (n1 * costt - n2 * costi) / torch.clamp_min(n1 * costt + n2 * costi, 1e-9)
     reflected = torch.where(tir, one, 0.5 * (spol * spol + ppol * ppol))
@@ -249,7 +249,7 @@ def shade(scene, dyn, ro, rd, hit: Hit, state: TraceState, ray_active,
             collider_normal = _sel(has_nmap, tex_normal, collider_normal)
 
     # ---- branch select (kernels.h:624-661) ----
-    brdf = diffuse / PI
+    brdf = vm.div(diffuse, PI)
     r_branch, rand_state = sampling.masked_rand(rand_state, live)
     take_transmit = live & (r_branch < transmit_p)
     take_reflect = live & ~take_transmit & (r_branch - transmit_p < reflect_p)
@@ -303,7 +303,7 @@ def shade(scene, dyn, ro, rd, hit: Hit, state: TraceState, ray_active,
             rl, rand_state = sampling.masked_rand(rand_state, take_diffuse)
             pick = (rl * n_lights).to(torch.int64) % n_lights
             lp = table_lookup(dyn.light_packed, pick)
-            centroid = ((lp[:, 0:3] + lp[:, 3:6]) + lp[:, 6:9]) / 3.0
+            centroid = vm.div((lp[:, 0:3] + lp[:, 3:6]) + lp[:, 6:9], 3.0)
             from_light = vm.normalize(pos - centroid, eps=1e-12)
             ok = take_diffuse & (vm.dot(lp[:, 9:12], from_light) > 0.0)
             valid = valid + ok.to(torch.float32)

@@ -6,14 +6,15 @@ from __future__ import annotations
 
 import torch
 
+from ..core import vecmath as vm
 from ..scene.textures import bilinear_wrap
 from ..constants import PI
 
 
 def normal_to_uv(n):
     """src/kernels.h:31-36; uv may be negative — wrap handles it."""
-    theta = torch.atan2(n[..., 0], n[..., 2]) / (2.0 * PI)
-    phi = -torch.acos(torch.clamp(n[..., 1], -1.0, 1.0)) / PI
+    theta = vm.div(torch.atan2(n[..., 0], n[..., 2]), 2.0 * PI)
+    phi = vm.div(-torch.acos(torch.clamp(n[..., 1], -1.0, 1.0)), PI)
     return theta, phi
 
 

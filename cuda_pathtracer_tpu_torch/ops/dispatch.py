@@ -8,6 +8,15 @@ on the card and runs its plain version on the CPU:
   * v1, the split inner/leaf tables (``ops/traverse_packet.py``), without
     barycentrics: when ``PACKET_V1`` is set (``CPT_PACKET_V1=1``, read at
     import), or when the scene is past the merged table's 2^20-row ceiling.
+
+Both give exact ``t`` on any table size; neither has a row cap below that
+ceiling. ``2mtris`` (303,709 merged rows, 155.5 MB: past the card's L2)
+runs on v2 from HBM, where the JAX package splits its table between VMEM
+and an HBM DMA walk; under ``PACKET_V1`` it runs on v1's split tables
+(23,028 inner + 280,681 leaf rows), where the JAX package, past its v1's
+``PACKET_MAX_ROWS`` of 180,000, walks ``traverse_wide`` instead. The
+kernels index rows in ``size_t`` and carry depth 8 well inside their
+stacks (48 and 64 entries).
 """
 from __future__ import annotations
 

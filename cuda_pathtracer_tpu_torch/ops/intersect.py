@@ -41,7 +41,7 @@ def ray_sphere(ro, rd, center, radius):
     b = 2.0 * vm.dot(rd, oc)
     c = vm.dot(oc, oc) - radius * radius
     det = b * b - 4.0 * a * c
-    sdet = torch.sqrt(torch.clamp_min(det, 0.0))
+    sdet = vm.sqrt(torch.clamp_min(det, 0.0))
     small_a = torch.abs(a) < 0.001
     denom = 2.0 * torch.where(small_a, torch.ones_like(a), a)
     tmin = (-b - sdet) / denom

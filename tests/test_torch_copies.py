@@ -161,3 +161,36 @@ def test_objloader(tmp_path):
         _same(getattr(t, f), getattr(j, f), f)
     assert len(t.materials) == len(j.materials) == 1
     assert vars(t.materials[0]) == vars(j.materials[0])
+
+
+def test_native_build_without_openmp(built, tmp_path, monkeypatch):
+    """On a compiler that refuses ``-fopenmp`` (a host with no libgomp) the
+    port's native builder compiles once more without it, and that serial
+    build gives the OpenMP build's tree and the JAX package's."""
+    jscene, tscene = built
+    m = tscene.models[0]
+    s, c = m.triangle_start, m.nr_triangles
+    tri = (tscene._v0[s:s + c], tscene._v1[s:s + c], tscene._v2[s:s + c])
+    assert '-fopenmp' in tnative.build_flags()
+    with_openmp = _canonical(tbvh.build_bvh(*tri))
+    want = _canonical(jbvh.build_bvh(*tri))
+
+    cxx = tmp_path / 'g++'
+    cxx.write_text('#!/bin/sh\nfor a in "$@"; do\n  if [ "$a" = -fopenmp ]; '
+                   'then echo "no libgomp.spec" >&2; exit 1; fi\ndone\n'
+                   'exec g++ "$@"\n')
+    cxx.chmod(0o755)
+    monkeypatch.setenv('CXX', str(cxx))
+    monkeypatch.delenv('CXXFLAGS', raising=False)
+    monkeypatch.setattr(tnative, '_BUILD_DIR', str(tmp_path / 'build'))
+    for name, value in (('_LIB', None), ('_TRIED', False), ('_FLAGS', None),
+                        ('_LOG', None)):
+        monkeypatch.setattr(tnative, name, value)
+    assert tnative.available()
+    assert tnative.build_flags() == [f for f in tnative.CXXFLAGS
+                                     if f != '-fopenmp']
+    log = tnative.build_log()
+    assert log.count(f'{cxx} ') == 2 and 'no libgomp.spec' in log, log
+    serial = _canonical(tbvh.build_bvh(*tri))
+    _same_tuple(serial, with_openmp, 'serial vs OpenMP')
+    _same_tuple(serial, want, 'serial vs JAX')

@@ -261,6 +261,79 @@ def test_room_render_matches_cpu(dev):
     assert close >= 0.99
 
 
+def _bits(x):
+    return x.detach().cpu().contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize('d', [1920, 1080, 48, 2.0 * 3.141592653589793,
+                               3.141592653589793, 3.0, 1.0])
+def test_scalar_division_matches_cpu(dev, d):
+    """ROADMAP C.7: ``vecmath.div`` (the path tracer's divisions by a
+    Python number: pixel fractions, the sample count, 1/pi, 1/(2 pi), the
+    light centroid's 1/3) rounds on the card as on the CPU."""
+    from cuda_pathtracer_tpu_torch.core import vecmath as vm
+    x = torch.from_numpy(np.random.RandomState(0).uniform(
+        -2000.0, 2000.0, 1 << 20).astype(np.float32))
+    assert torch.equal(_bits(vm.div(x.to(dev), d)), _bits(x / d))
+
+
+def test_sqrt_matches_cpu(dev):
+    """``vecmath.sqrt`` (every square root of the render paths) is the IEEE
+    f32 root (numpy's) on the card and on the CPU, where PyTorch's own f32
+    ``torch.sqrt`` is an ulp off it for some of these inputs."""
+    from cuda_pathtracer_tpu_torch.core import vecmath as vm
+    rs = np.random.RandomState(2)
+    x = np.concatenate([rs.uniform(0.0, 30.0, 1 << 20),
+                        np.exp(rs.uniform(-80.0, 80.0, 1 << 20))]).astype(
+                            np.float32)
+    want = torch.from_numpy(np.sqrt(x)).view(torch.int32)
+    t = torch.from_numpy(x)
+    assert torch.equal(_bits(vm.sqrt(t.to(dev))), want)
+    assert torch.equal(_bits(vm.sqrt(t)), want)
+
+
+def test_generate_rays_matches_cpu(dev):
+    """The path tracer's primary rays at 1920x1080, bit for bit (aperture 0:
+    the lens offset's sin and cos are each device's own math library, and
+    0 times them drops out)."""
+    from cuda_pathtracer_tpu_torch.core import camera as cam_mod
+    from cuda_pathtracer_tpu_torch.core import rng
+    W, H = 1920, 1080
+    out = []
+    for d in (dev, torch.device('cpu')):
+        ys, xs = torch.meshgrid(torch.arange(H, device=d),
+                                torch.arange(W, device=d), indexing='ij')
+        xs, ys = xs.reshape(-1).to(torch.int32), ys.reshape(-1).to(torch.int32)
+        cam = Camera.create([0.0, 5.0, -16.0], [0.0, -0.1, 1.0], 1.5, 12.0,
+                            0.0, device=d)
+        ro, rd, st = cam_mod.generate_rays(cam, xs, ys,
+                                           rng.get_seed(xs, ys, 7, W), W, H)
+        out.append((ro, rd, st.seed.to(torch.int64)))
+    for got, want in zip(*out):
+        if got.dtype == torch.float32:
+            got, want = _bits(got), _bits(want)
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize('blur_on', [False, True], ids=['plain', 'blur'])
+def test_display_matches_cpu(dev, blur_on):
+    """``film.display`` at 1920x1080 (the division by the sample count, the
+    vignette's pixel fractions; with the blur kernel on the card against its
+    plain version on the CPU), bit for bit."""
+    from cuda_pathtracer_tpu_torch.models import film
+    W, H = 1920, 1080
+    rs = np.random.RandomState(1)
+    lum = rs.uniform(0.0, 30.0, (W * H, 4)).astype(np.float32)
+    lum[:, 3] = 7.0
+    alb = rs.uniform(0.0, 7.0, (W * H, 4)).astype(np.float32)
+    alb[:, 3] = 7.0
+    got = film.display(torch.from_numpy(lum).to(dev),
+                       torch.from_numpy(alb).to(dev), 7.0, W, H, blur=blur_on)
+    want = film.display(torch.from_numpy(lum), torch.from_numpy(alb), 7.0, W,
+                        H, blur=blur_on)
+    assert torch.equal(_bits(got), _bits(want))
+
+
 @pytest.mark.parametrize('spp', [1, 2])
 def test_tail_schedule_matches_cpu(dev, monkeypatch, spp):
     """The full-size schedule at a small size: the room at 64x64 in bands of

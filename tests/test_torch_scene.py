@@ -7,6 +7,7 @@ import pytest
 import torch
 
 from _torch_room import build_room
+from _torch_scene_cmp import eq as _eq, same_dynamic_arrays, same_to_device
 from cuda_pathtracer_tpu.scene import scene as js
 from cuda_pathtracer_tpu.ops import traverse_packet2 as jtp2
 from cuda_pathtracer_tpu.models.guiding import init_radiance_state
@@ -27,17 +28,6 @@ def scenes():
     return jscene, tscene, jarr, jdyn
 
 
-def _eq(got: torch.Tensor, want: np.ndarray, name: str):
-    got = got.numpy()
-    assert got.shape == want.shape, (name, got.shape, want.shape)
-    if want.dtype == np.float32:
-        # bit patterns: NaN boxes and int32 words stored in f32 rows
-        np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32),
-                                      err_msg=name)
-    else:
-        np.testing.assert_array_equal(got, want, err_msg=name)
-
-
 def test_room_is_small_and_complete(scenes):
     jscene, tscene, _, _ = scenes
     assert 100 <= len(tscene._tri_mat) <= 1000
@@ -48,25 +38,14 @@ def test_room_is_small_and_complete(scenes):
 
 def test_to_device_matches(scenes):
     _, tscene, jarr, _ = scenes
-    tarr = tscene.to_device('cpu')
-    for f in SceneArrays._fields:
-        if f == 'textures':
-            for g in ('texels', 'offset', 'width', 'height'):
-                _eq(getattr(tarr.textures, g), getattr(jarr.textures, g), g)
-        else:
-            _eq(getattr(tarr, f), getattr(jarr, f), f)
+    same_to_device(jarr, tscene.to_device('cpu'))
 
 
 def test_dynamic_arrays_match(scenes):
     jscene, tscene, _, jdyn = scenes
     tdyn = tscene.dynamic_arrays('cpu')
     assert tdyn.depth == jscene.wide_depth
-    _eq(tdyn.tri_gid, jdyn.world.tri_gid, 'tri_gid')
-    _eq(tdyn.tri_inst, jdyn.world.tri_inst, 'tri_inst')
-    _eq(tdyn.world_tris, jdyn.world.tris, 'world_tris')
-    for f in DynamicArrays._fields:
-        if f not in ('tri_gid', 'tri_inst', 'world_tris', 'depth'):
-            _eq(getattr(tdyn, f), getattr(jdyn, f), f)
+    same_dynamic_arrays(jdyn, tdyn)
 
 
 def test_build_merged_table_bit_exact(scenes):
