@@ -1,10 +1,11 @@
 """Smoke run of the PyTorch + CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --cards 4     # only --shard across 4 cards
 
 Builds the twelve hand-written CUDA kernels from ``cuda_pathtracer_tpu_torch/
-csrc`` and drives the port's render paths once at full size (phases 1-3 and
-5), then the eight probe kernels' sweeps (phase 4, run last):
+csrc`` and drives the port's render paths once at full size (phases 1-3,
+5 and 6), then the eight probe kernels' sweeps (phase 4, run last):
 
 1. the converge path: the sibenik scene at 1920x1080, one clear frame, 4
    converge samples (32 bounces, NEE, guiding training) and the blurred
@@ -91,6 +92,33 @@ inputs (for the traversals, the node and leaf visits of the plain walks).
    --scene s.chai --width 1920 --height 1080 --spp 2 --blur``, in this
    process; its image must equal bit for bit the same scene built through
    the Scene API and rendered by the same steps.
+
+6. ``--shard`` and JPEG (``run_shard``, after phase 5): (a) a world of one
+   rank on NCCL in this process: sibenik at 1920x1080 in the default
+   geometry (5 bands of 216 rows), a clear frame and 2 converge samples,
+   held bit for bit to the single engine after every frame (``lum``,
+   ``alb``, the radiance cache and total, ``rand_idx``, ``sample_idx``);
+   (b) two ranks that share the card, on gloo, as spawned processes
+   (``shard_rank``): 6 bands of 180 rows, tile order off, held to the single
+   engine forced to the same bands: ``lum`` bit-equal after the clear frame
+   and the first converge sample, ``rand_idx`` equal, the radiance cache
+   within rtol 1e-4 / atol 1e-5, after the second sample the weight channel
+   equal and the mean within 2%; ``traverse`` and ``guiding_scatter`` must
+   launch on every rank, ``blur`` on rank 0's image, no plain version on
+   CUDA; the ms per converge sample at one rank and at two ranks (host
+   wall, CUDA events, profiler busy time); (c) ``python -m
+   cuda_pathtracer_tpu_torch --shard --scene outside --width 1920 --height
+   1080 --time 5 --spp 4 --blur`` as a subprocess (one card: a world of
+   one), its PNG equal to the same command's without ``--shard``; (d) the
+   JPEG fixtures of ``tests/data/jpeg`` decoded to the digests of PIL's
+   decodes in ``digests.json``, then ``outside`` at 1920x1080 with a
+   fixture as ``skydome.jpg``: its ``sky_img`` equals the decode and its
+   image differs from the grey-sky render.
+
+``--cards N`` runs only ``--shard`` across N cards of one host, one rank per
+card on NCCL (``run_cards``): N spawned ranks held to the single engine at
+their geometry as in 6b, then the CLI's ``--shard`` with the ranks it starts
+itself and with N ranks in torchrun's environment that each see one card.
 
 Prints the card's name and power limit, the build time, per-phase lines,
 then one JSON line of per-kernel results, the card line, and as its last line
@@ -623,6 +651,432 @@ def run_scenes(cli_main, sib_waves: dict, tmp: str, failures: list) -> dict:
                         f'its twin')
     del twin, scene
     torch.cuda.empty_cache()
+    return counts
+
+
+SHARD_FRAMES = (True, False, False)    # a clear frame, 2 converge samples
+JPEG_DIR = 'tests/data/jpeg'
+
+
+def _sample_times(pt, cam, clear: bool):
+    """Render one frame; returns (host wall ms, CUDA-event ms) around it."""
+    import torch
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    ms, _ = cuda_ms(lambda: pt.render(cam, should_clear=clear))
+    return (time.perf_counter() - t) * 1e3, ms
+
+
+def shard_rank(rank: int, world: int, store: str, out: str,
+               cards: bool = False):
+    """One spawned rank of phase 6b (or of ``--cards``): sibenik at
+    1920x1080 sharded over ``world`` ranks, on card ``rank`` when ``cards``
+    (NCCL) else all on card 0 (gloo), SHARD_FRAMES, the blurred image, then
+    one profiled converge sample. Rank 0 saves the gathered lane-order
+    accumulators after every frame; every rank saves its launches, its
+    sample times and its busy time to ``out/rank{r}.pt``."""
+    sys.modules['jax'] = None
+    import torch
+    from cuda_pathtracer_tpu_torch.core.camera import Camera
+    from cuda_pathtracer_tpu_torch.ops import kernels
+    from cuda_pathtracer_tpu_torch.parallel import mesh
+    from cuda_pathtracer_tpu_torch.scene import builder
+    from cuda_pathtracer_tpu_torch.utils import profiling
+    device = f'cuda:{rank}' if cards else 'cuda:0'
+    torch.cuda.set_device(device)
+    kernels.library()
+    group = mesh.init_group(device, rank, world, store)
+    res = {'rank': rank, 'backend': group.backend, 'ridx': [], 'times': []}
+    try:
+        scene = builder.get_scene('sibenik')
+        pt = mesh.ShardedPathtracer(scene, WIDTH, HEIGHT, group=group)
+        res['geometry'] = (pt.height, pt.bands, pt.band_h, pt.tile_order,
+                           list(pt._owned_bands()))
+        cam = Camera.create(*SIBENIK_CAMERA, device=device)
+        kernels.reset_counts()
+        for i, clear in enumerate(SHARD_FRAMES):
+            res['times'].append(_sample_times(pt, cam, clear))
+            res['ridx'].append(pt.rand_idx)
+            lum, alb = pt.gather_lanes()
+            if rank == 0:
+                res[f'lum{i}'], res[f'alb{i}'] = lum.cpu(), alb.cpu()
+                res[f'cache{i}'] = pt.radiance.cache.cpu()
+            del lum, alb
+        img = pt.image(blur=True)
+        torch.cuda.synchronize()
+        res['launches'] = dict(kernels.LAUNCHES)
+        res['plain'] = dict(kernels.PLAIN_ON_CUDA)
+        if rank == 0:
+            res['image_finite'] = bool(torch.isfinite(img).all())
+        res['busy_ms'] = profiling.device_op_shares(
+            lambda: pt.render(cam))['_busy_ms']
+        res['jax'] = sorted(
+            m for m in sys.modules if sys.modules[m] is not None and (
+                m in ('jax', 'cuda_pathtracer_tpu')
+                or m.startswith(('jax.', 'cuda_pathtracer_tpu.'))))
+    finally:
+        mesh.close_group()
+    torch.save(res, os.path.join(out, f'rank{rank}.pt'))
+
+
+def check_launches(tag, got, plain, need, failures: list):
+    """Every kernel of ``need`` launched, no plain version ran on CUDA."""
+    plain = {k: v for k, v in plain.items() if v}
+    log(f'  {tag}: launches {got}; plain versions on CUDA {plain}')
+    for name in need:
+        if got.get(name, 0) <= 0:
+            failures.append(f'{tag}: {name} never launched')
+    if any(plain.values()):
+        failures.append(f'{tag}: plain versions ran on CUDA: {plain}')
+
+
+def snapshots(pt, cam, frames):
+    """Render ``frames``; per frame the times, counters and state."""
+    out = []
+    for clear in frames:
+        times = _sample_times(pt, cam, clear)
+        out.append(dict(times=times, ridx=pt.rand_idx, sidx=pt.sample_idx,
+                        lum=pt.lum.cpu(), alb=pt.alb.cpu(),
+                        cache=pt.radiance.cache.cpu(),
+                        total=pt.radiance.total.cpu()))
+    return out
+
+
+def per_sample(snaps):
+    """(host wall ms, CUDA-event ms) per converge sample of ``snaps``."""
+    conv = [s['times'] for s in snaps[1:]]
+    return (sum(w for w, _ in conv) / len(conv),
+            sum(e for _, e in conv) / len(conv))
+
+
+def spawn_shard(tmp: str, world: int, cards: bool, failures: list, tag: str):
+    """``shard_rank`` in ``world`` spawned processes; their results (None
+    when a rank failed) and the seconds it took."""
+    import multiprocessing as mp
+    import torch
+    out = os.path.join(tmp, f'ranks-{world}-{cards}')
+    os.makedirs(out)
+    ctx = mp.get_context('spawn')
+    store = os.path.join(tmp, f'store-{world}-{cards}')
+    procs = [ctx.Process(target=shard_rank, args=(r, world, store, out, cards))
+             for r in range(world)]
+    t = time.perf_counter()
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(600)
+        if p.is_alive():
+            p.kill()
+            p.join()
+    spent = time.perf_counter() - t
+    codes = [p.exitcode for p in procs]
+    if any(codes):
+        failures.append(f'{tag}: rank exit codes {codes}')
+        return None, spent
+    return [torch.load(os.path.join(out, f'rank{r}.pt'))
+            for r in range(world)], spent
+
+
+def hold_shard(tag: str, ranks: list, want: list, geometry: tuple,
+               backend: str, failures: list, counts: dict):
+    """Hold spawned ranks to the single engine at their geometry (``want``,
+    SHARD_FRAMES): ``lum`` bit-equal after the clear frame and the first
+    converge sample, ``rand_idx`` equal, the radiance cache within rtol 1e-4
+    / atol 1e-5, after the second sample the weight channel equal and the
+    mean within 2%; every rank on ``backend`` at ``geometry`` (height,
+    bands, band_h, tile order), the path's kernels launched. Returns the
+    ranks' (wall, CUDA-event) ms per converge sample."""
+    import torch
+    r0 = ranks[0]
+    ridx_ok = all(r['ridx'] == [w['ridx'] for w in want] for r in ranks)
+    bit = [torch.equal(r0[f'lum{i}'], want[i]['lum']) for i in (0, 1)]
+    cache_ok = torch.allclose(r0['cache1'], want[1]['cache'], rtol=1e-4,
+                              atol=1e-5)
+    cache_d = float((r0['cache1'] - want[1]['cache']).abs().max())
+    w_ok = torch.equal(r0['lum2'][:, 3], want[2]['lum'][:, 3])
+    mean = float(r0['lum2'][:, :3].mean() / want[2]['lum'][:, :3].mean())
+    log(f'{tag}: {len(ranks)} ranks on {[r["backend"] for r in ranks]}, '
+        f'geometry {[r["geometry"] for r in ranks]}; rand_idx {r0["ridx"]} '
+        f'(single {[w["ridx"] for w in want]}); lum bit-equal after the '
+        f'clear frame and the first converge sample {bit}; radiance cache '
+        f'max|d| {cache_d:.3g} (rtol 1e-4, atol 1e-5: {cache_ok}); after '
+        f'the second: weight equal {w_ok}, mean ratio {mean:.6f}')
+    for r in ranks:
+        need = SIBENIK_KERNELS if r['rank'] == 0 else \
+            ('traverse', 'guiding_scatter')
+        got = {k: v for k, v in r['launches'].items() if v}
+        check_launches(f'{tag} rank {r["rank"]}', got, r['plain'], need,
+                       failures)
+        counts[f'{tag} rank {r["rank"]}'] = got
+        if r['jax']:
+            failures.append(f'{tag} rank {r["rank"]} imported {r["jax"]}')
+    if not (ridx_ok and all(bit) and cache_ok and w_ok
+            and abs(mean - 1) < 0.02 and r0['image_finite']
+            and all(r['backend'] == backend and tuple(r['geometry'][:4])
+                    == geometry for r in ranks)):
+        failures.append(f'{tag}: the ranks disagree with the single engine')
+    return ([sum(w for w, _ in r['times'][1:]) / 2 for r in ranks],
+            [sum(e for _, e in r['times'][1:]) / 2 for r in ranks])
+
+
+def run_shard(tmp: str, failures: list) -> dict:
+    """Phase 6: ``--shard`` and JPEG on the card. (a) a world of one rank on
+    NCCL in this process, held bit for bit to the single engine; (b) two
+    spawned ranks sharing the card on gloo, held to the single engine at
+    their geometry; (c) the CLI with and without ``--shard``; (d) the JPEG
+    fixtures against PIL's digests and a JPEG sky on outside. Returns
+    {run: launches}."""
+    import hashlib
+    import subprocess
+    import torch
+    from cuda_pathtracer_tpu_torch.core.camera import Camera
+    from cuda_pathtracer_tpu_torch.models.pathtracer import Pathtracer
+    from cuda_pathtracer_tpu_torch.ops import kernels
+    from cuda_pathtracer_tpu_torch.parallel import mesh
+    from cuda_pathtracer_tpu_torch.scene import builder
+    from cuda_pathtracer_tpu_torch.scene.jpeg import decode_jpeg
+    from cuda_pathtracer_tpu_torch.scene.textures import load_image
+    from cuda_pathtracer_tpu_torch.utils import profiling
+    counts = {}
+    cam = Camera.create(*SIBENIK_CAMERA, device='cuda')
+
+    # (a) a world of one rank on NCCL, in this process, at the default
+    # geometry (5 bands of 216 rows)
+    scene = builder.get_scene('sibenik')
+    single = Pathtracer(scene, WIDTH, HEIGHT, device='cuda')
+    want = snapshots(single, cam, SHARD_FRAMES)
+    group = mesh.init_group('cuda:0', 0, 1, os.path.join(tmp, 'store-a'))
+    try:
+        pt = mesh.ShardedPathtracer(scene, WIDTH, HEIGHT, group=group)
+        geo = (pt.height, pt.bands, pt.band_h, pt.tile_order)
+        kernels.reset_counts()
+        got = snapshots(pt, cam, SHARD_FRAMES)
+        img = pt.image(blur=True)
+        torch.cuda.synchronize()
+        counts['6a'] = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        check_launches('6a', counts['6a'], dict(kernels.PLAIN_ON_CUDA),
+                       SIBENIK_KERNELS, failures)
+        busy_a = profiling.device_op_shares(lambda: pt.render(cam))['_busy_ms']
+        # two more converge samples of each engine, in turns (the host's
+        # clock drifts between runs on this machine)
+        turns = {'single': [], 'one rank': []}
+        for _ in range(2):
+            turns['single'].append(_sample_times(single, cam, False))
+            turns['one rank'].append(_sample_times(pt, cam, False))
+        backend = group.backend
+    finally:
+        mesh.close_group()
+    same = all(g['ridx'] == w['ridx'] and g['sidx'] == w['sidx'] and all(
+        torch.equal(g[k], w[k]) for k in ('lum', 'alb', 'cache', 'total'))
+        for g, w in zip(got, want))
+    wall1, ev1 = per_sample(got)
+    turns = {k: [round(w, 1) for w, _ in v] for k, v in turns.items()}
+    log(f'phase 6a: world of one on {backend}, {geo[1]} bands of {geo[2]} '
+        f'rows (tile order {geo[3]}); rand_idx {[g["ridx"] for g in got]}; '
+        f'lum, alb, radiance and rand_idx bit-equal to the single engine '
+        f'after every frame: {same}; converge sample {wall1:.1f} ms wall, '
+        f'{ev1:.1f} ms CUDA events, busy {busy_a:.1f} ms (single engine '
+        f'{per_sample(want)[0]:.1f} ms wall); in turns, ms wall per sample '
+        f'{turns}')
+    if backend != 'nccl' or geo != (HEIGHT, 5, 216, True) or not same:
+        failures.append(f'6a: backend {backend}, geometry {geo}, bit-equal '
+                        f'{same}')
+    if tuple(img.shape) != (HEIGHT, WIDTH, 3) or not bool(
+            torch.isfinite(img).all()):
+        failures.append('6a: the blurred image is not finite [1080, 1920, 3]')
+    del pt, single, got, want, img
+    torch.cuda.empty_cache()
+
+    # (b) two ranks sharing the card (gloo), against the single engine at
+    # their geometry: 6 bands of 180 rows, tile order off
+    height, bands = mesh.mesh_geometry(WIDTH, HEIGHT, 5, 2)
+    single = Pathtracer(scene, WIDTH, HEIGHT, device='cuda')
+    single._set_bands(bands)
+    want = snapshots(single, cam, SHARD_FRAMES)
+    del single, scene
+    torch.cuda.empty_cache()
+    ranks, spent = spawn_shard(tmp, 2, False, failures, '6b')
+    if ranks is not None:
+        log(f'phase 6b: {spent:.1f} s with the spawn and the scene builds')
+        walls, evs = hold_shard('phase 6b', ranks, want,
+                                (height, bands, 180, False), 'gloo',
+                                failures, counts)
+        wall_s, ev_s = per_sample(want)
+        log(f'  ms per converge sample: 2 ranks wall {walls}, CUDA events '
+            f'{evs}, busy {[r["busy_ms"] for r in ranks]}; single engine '
+            f'at 6 bands wall {wall_s:.1f}, CUDA events {ev_s:.1f}; one '
+            f'rank (6a, 5 bands) wall {wall1:.1f}, CUDA events {ev1:.1f}, '
+            f'busy {busy_a:.1f}')
+
+    # (c) the CLI: --shard (one card: a world of one) against no --shard,
+    # both at once
+    runs = {}
+    for tag, extra in (('plain', []), ('shard', ['--shard'])):
+        state = os.path.join(tmp, f'cli-{tag}.txt')
+        with open(state, 'w') as f:
+            f.write(OUTSIDE_STATE)
+        png = os.path.join(tmp, f'cli-{tag}.png')
+        runs[tag] = (png, subprocess.Popen(
+            [sys.executable, '-m', 'cuda_pathtracer_tpu_torch', *OUTSIDE_ARGS,
+             '--out', png, '--state', state, *extra], cwd=tmp,
+            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True,
+            env=dict(os.environ, PYTHONPATH=os.path.dirname(
+                os.path.abspath(__file__)))))
+    pngs = {}
+    t = time.perf_counter()
+    for tag, (png, proc) in runs.items():
+        try:
+            _, err = proc.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            _, err = proc.communicate()
+        lines = [ln for ln in err.splitlines()
+                 if ln.startswith(('shard:', 'rendered', 'energy'))]
+        log(f'phase 6c {tag}: rc={proc.returncode}; {lines}')
+        if proc.returncode:
+            failures.append(f'6c {tag}: rc {proc.returncode}: {err[-1500:]}')
+            continue
+        with open(png, 'rb') as f:
+            pngs[tag] = f.read()
+    same = len(pngs) == 2 and pngs['plain'] == pngs['shard']
+    if not same:
+        failures.append('6c: the --shard PNG differs from the plain one')
+    log(f'phase 6c: {time.perf_counter() - t:.1f} s for both; the PNG with '
+        f'--shard equals the PNG without: {same}')
+
+    # (d) JPEG: the fixtures against PIL's digests, then a JPEG sky
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, JPEG_DIR, 'digests.json')) as f:
+        digests = json.load(f)
+    bad = []
+    t = time.perf_counter()
+    for name, d in sorted(digests.items()):
+        with open(os.path.join(here, JPEG_DIR, name), 'rb') as f:
+            px = decode_jpeg(f.read())
+        if list(px.shape) != d['shape'] or \
+                hashlib.sha256(px.tobytes()).hexdigest() != d['sha256']:
+            bad.append(name)
+    log(f'phase 6d: {len(digests) - len(bad)} of {len(digests)} JPEG '
+        f'fixtures decode to PIL\'s digests ({time.perf_counter() - t:.2f} '
+        f's, the decoder build included)')
+    if bad:
+        failures.append(f'6d: JPEG decodes differ from PIL: {bad}')
+    sky_dir = os.path.join(tmp, 'sky')
+    os.makedirs(sky_dir)
+    sky = os.path.join(sky_dir, 'skydome.jpg')
+    with open(os.path.join(here, JPEG_DIR, 'sky_256x128.jpg'), 'rb') as f, \
+            open(sky, 'wb') as g:
+        g.write(f.read())
+    out_cam = Camera.create([0.0, 4.0, -17.0], [0.0, -0.2, 1.0], 1.5, 12.0,
+                            0.02, device='cuda')
+    imgs = {}
+    no_sky = os.path.join(tmp, 'no-sky')
+    os.makedirs(no_sky)
+    for tag, dirs in (('jpeg', [sky_dir]), ('grey', [no_sky])):
+        pt = Pathtracer(builder.get_scene('outside', asset_dirs=dirs), WIDTH,
+                        HEIGHT, device='cuda')
+        if tag == 'jpeg':
+            sky_ok = torch.equal(pt.arrays.sky_img.cpu(),
+                                 torch.from_numpy(load_image(sky)))
+        pt.render(out_cam, 5.0, should_clear=True)
+        imgs[tag] = pt.image().cpu()
+        del pt
+    differs = float((imgs['jpeg'] - imgs['grey']).abs().max())
+    log(f'phase 6d: outside {WIDTH}x{HEIGHT} with skydome.jpg: sky_img '
+        f'equals the '
+        f'decode: {sky_ok}; image max|d| against the grey sky {differs:.4f}')
+    if not sky_ok or not differs > 0:
+        failures.append('6d: the JPEG sky did not load or did not show')
+    return counts
+
+
+def run_cards(n: int, tmp: str, failures: list) -> dict:
+    """``--cards N``: ``--shard`` across N cards of one host, one rank per
+    card, on NCCL. (1) N spawned ranks (``shard_rank``, card r for rank r)
+    held to the single engine at their geometry as phase 6b holds two
+    ranks; (2) the CLI twice: ``--shard`` starting its own ranks (one per
+    visible card) and N processes in torchrun's environment that each see
+    only their own card as ``cuda:0``; both must choose NCCL, and their
+    PNGs must agree on 99% of the pixels to one level."""
+    import subprocess
+    import torch
+    from cuda_pathtracer_tpu_torch.core.camera import Camera
+    from cuda_pathtracer_tpu_torch.models.pathtracer import Pathtracer
+    from cuda_pathtracer_tpu_torch.parallel import mesh
+    from cuda_pathtracer_tpu_torch.scene import builder
+    from cuda_pathtracer_tpu_torch.utils.image import decode_png
+    counts = {}
+    if torch.cuda.device_count() < n:
+        failures.append(f'--cards {n}: {torch.cuda.device_count()} cards')
+        return counts
+    single = Pathtracer(builder.get_scene('sibenik'), WIDTH, HEIGHT,
+                        device='cuda')
+    height, bands = mesh.mesh_geometry(WIDTH, HEIGHT, single.bands, n)
+    single._set_bands(bands)
+    want = snapshots(single, Camera.create(*SIBENIK_CAMERA, device='cuda'),
+                     SHARD_FRAMES)
+    del single
+    torch.cuda.empty_cache()
+    ranks, spent = spawn_shard(tmp, n, True, failures, 'cards')
+    if ranks is not None:
+        log(f'cards: {spent:.1f} s with the spawn and the scene builds')
+        walls, evs = hold_shard(f'cards {n}', ranks, want,
+                                (height, bands, height // bands,
+                                 WIDTH % 16 == 0 and (height // bands) % 8 == 0),
+                                'nccl', failures, counts)
+        wall_s, ev_s = per_sample(want)
+        log(f'  ms per converge sample: {n} ranks wall {walls}, CUDA events '
+            f'{evs}, busy {[r["busy_ms"] for r in ranks]}; single engine at '
+            f'{bands} bands wall {wall_s:.1f}, CUDA events {ev_s:.1f}')
+
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    pngs = {}
+    for i, tag in enumerate(('spawned', 'one card each')):
+        png = os.path.join(tmp, f'cards-{i}.png')
+        state = os.path.join(tmp, f'cards-{i}.txt')
+        with open(state, 'w') as f:
+            f.write(OUTSIDE_STATE)
+        args = [sys.executable, '-m', 'cuda_pathtracer_tpu_torch', '--shard',
+                *OUTSIDE_ARGS, '--out', png, '--state', state]
+        if tag == 'spawned':
+            envs = [env]
+        else:
+            port = str(free_port())
+            envs = [dict(env, RANK=str(r), LOCAL_RANK='0',
+                         WORLD_SIZE=str(n), LOCAL_WORLD_SIZE='1',
+                         MASTER_ADDR='127.0.0.1', MASTER_PORT=port,
+                         CUDA_VISIBLE_DEVICES=str(r)) for r in range(n)]
+        t = time.perf_counter()
+        procs = [subprocess.Popen(args, cwd=tmp, env=e,
+                                  stdout=subprocess.DEVNULL,
+                                  stderr=subprocess.PIPE, text=True)
+                 for e in envs]
+        errs = []
+        for proc in procs:
+            try:
+                errs.append(proc.communicate(timeout=600)[1])
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                errs.append(proc.communicate()[1])
+        lines = [ln for ln in errs[0].splitlines()
+                 if ln.startswith(('shard:', 'rendered', 'energy'))]
+        codes = [proc.returncode for proc in procs]
+        log(f'cards CLI {tag}: rc {codes}, {time.perf_counter() - t:.1f} s; '
+            f'{lines}')
+        if any(codes) or not any(f'shard: {n} ranks, backend nccl' in ln
+                                 for ln in lines):
+            failures.append(f'cards CLI {tag}: rc {codes}, not {n} ranks on '
+                            f'NCCL: {errs[0][-1500:]}')
+            continue
+        with open(png, 'rb') as f:
+            pngs[tag] = decode_png(f.read()).astype(int)
+    if len(pngs) == 2:
+        a, b = pngs.values()
+        close = float((abs(a - b).max(axis=-1) <= 1).mean())
+        log(f'cards CLI: the two PNGs equal {bool((a == b).all())}, '
+            f'{close:.6f} of pixels within one level')
+        if close < 0.99:
+            failures.append(f'cards CLI: the PNGs agree on {close:.6f}')
     return counts
 
 
@@ -1167,7 +1621,12 @@ def run_checkpoint(cli_main, tmp: str, failures: list):
 
 
 def main() -> int:
+    import argparse
     import torch
+    p = argparse.ArgumentParser(description='smoke run of the port on the card')
+    p.add_argument('--cards', type=int, default=0,
+                   help='only --shard across this many cards (NCCL)')
+    cards = p.parse_args().cards
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device (torch.cuda.is_available() is '
               'false)', file=sys.stderr)
@@ -1218,6 +1677,13 @@ def main() -> int:
     if not ok:
         failures.append('native BVH builder: not built; the host builds '
                         'BVHs with numpy')
+    if cards:
+        with tempfile.TemporaryDirectory() as tmp:
+            t = time.perf_counter()
+            counts = run_cards(cards, tmp, failures)
+            log(f'--cards {cards}: {time.perf_counter() - t:.1f} s wall; '
+                f'launches per rank {counts}')
+        return finish(failures, card, None, None)
 
     # ---- path 1: sibenik converge at full size (v2), default bands ----
     t = time.perf_counter()
@@ -1638,6 +2104,12 @@ def main() -> int:
         log(f'phase 5 (minecraft, 2mtris, .chai): '
             f'{time.perf_counter() - t:.1f} s wall; launches per run {scenes}')
 
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        shard = run_shard(tmp, failures)
+        log(f'phase 6 (--shard, JPEG): {time.perf_counter() - t:.1f} s wall; '
+            f'launches per run {shard}')
+
     run_probes(launches, results, failures)
 
     loaded = sorted(m for m in sys.modules
@@ -1647,15 +2119,22 @@ def main() -> int:
     if loaded:
         failures.append(f'modules of JAX or the JAX package were imported: '
                         f'{loaded}')
+    return finish(failures, card, launches, results)
+
+
+def finish(failures: list, card: str, launches, results) -> int:
+    """Print the failures and return 1, or print the kernels' line (when
+    ``launches``), the card line and the result line and return 0."""
+    import torch
     if failures:
         for f in failures:
             print('FAIL: ' + f, file=sys.stderr)
         return 1
-
-    print(json.dumps({'kernels': [
-        {'name': name, 'route': 'cuda', 'source': src, 'replaces': rep,
-         'launches': launches[name], **results[name]}
-        for name, (src, rep) in KERNELS.items()]}))
+    if launches is not None:
+        print(json.dumps({'kernels': [
+            {'name': name, 'route': 'cuda', 'source': src, 'replaces': rep,
+             'launches': launches[name], **results[name]}
+            for name, (src, rep) in KERNELS.items()]}))
     print(card)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

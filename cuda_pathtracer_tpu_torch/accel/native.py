@@ -36,14 +36,45 @@ _FLAGS = None       # the flags that built the loaded library
 _LOG = None         # the .log of the last build attempt
 
 
-def _library_path(flags):
-    """(compiler, library path) for ``flags``: the name hashes the
-    compiler, the flags and the source."""
-    cxx = os.environ.get('CXX', 'g++')
-    h = hashlib.sha256(' '.join([cxx, *flags]).encode())
-    with open(_SRC, 'rb') as f:
+def library_path(src: str, flags, build_dir: str, stem: str) -> str:
+    """Where :func:`compile_library` puts ``src`` built with ``flags``:
+    ``build_dir/{stem}_<hash>.so``, the hash of the compiler (``$CXX``,
+    else ``g++``), the flags and the source."""
+    h = hashlib.sha256(' '.join([os.environ.get('CXX', 'g++'), *flags]
+                                ).encode())
+    with open(src, 'rb') as f:
         h.update(f.read())
-    return cxx, os.path.join(_BUILD_DIR, f'libbvh_{h.hexdigest()[:16]}.so')
+    return os.path.join(build_dir, f'{stem}_{h.hexdigest()[:16]}.so')
+
+
+def compile_library(src: str, flags, build_dir: str, stem: str,
+                    prior: str = ''):
+    """Compile ``src`` with ``flags`` into the shared library at
+    :func:`library_path` unless it exists, with the compiler's output
+    (after ``prior``) beside it as ``.log``. Returns (library path or None
+    when the compiler is missing or fails, log path, the compiler's
+    output)."""
+    so = library_path(src, flags, build_dir, stem)
+    log_path = so[:-3] + '.log'
+    if os.path.exists(so):
+        return so, log_path, ''
+    os.makedirs(build_dir, exist_ok=True)
+    tmp = f'{so}.{os.getpid()}.tmp'
+    cmd = [os.environ.get('CXX', 'g++'), *flags, '-shared', '-o', tmp, src]
+    try:
+        res = subprocess.run(cmd, capture_output=True, text=True, timeout=120)
+        log = ' '.join(cmd) + '\n' + res.stdout + res.stderr
+        ok = res.returncode == 0
+    except Exception as e:   # no compiler, or it hung
+        log, ok = f'{" ".join(cmd)}\n{e!r}\n', False
+    with open(log_path, 'w') as f:
+        f.write(prior + log)
+    if not ok:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+        return None, log_path, log
+    os.replace(tmp, so)
+    return so, log_path, log
 
 
 def _flags():
@@ -53,7 +84,8 @@ def _flags():
 
 def build_log() -> str:
     """The compiler's output of the last build (empty before one)."""
-    path = _LOG or _library_path(_flags())[1][:-3] + '.log'
+    path = _LOG or library_path(_SRC, _flags(), _BUILD_DIR,
+                                'libbvh')[:-3] + '.log'
     if not os.path.exists(path):
         return ''
     with open(path) as f:
@@ -72,26 +104,7 @@ def _compile(flags, prior: str = ''):
     """Compile the library with ``flags`` unless an up-to-date one exists.
     Returns (library path or None, the compiler's output)."""
     global _LOG
-    cxx, so = _library_path(flags)
-    _LOG = so[:-3] + '.log'
-    if os.path.exists(so):
-        return so, ''
-    os.makedirs(_BUILD_DIR, exist_ok=True)
-    tmp = f'{so}.{os.getpid()}.tmp'
-    cmd = [cxx, *flags, '-shared', '-o', tmp, _SRC]
-    try:
-        res = subprocess.run(cmd, capture_output=True, text=True, timeout=120)
-        log = ' '.join(cmd) + '\n' + res.stdout + res.stderr
-        if res.returncode == 0:
-            os.replace(tmp, so)
-    except Exception as e:   # no compiler, or it hung
-        res, log = None, f'{" ".join(cmd)}\n{e!r}\n'
-    with open(_LOG, 'w') as f:
-        f.write(prior + log)
-    if res is None or res.returncode != 0:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-        return None, log
+    so, _LOG, log = compile_library(_SRC, flags, _BUILD_DIR, 'libbvh', prior)
     return so, log
 
 

@@ -369,6 +369,8 @@ class Pathtracer:
     MAX_LANES_PER_DISPATCH = 360000
     # converge samples batched into one dispatch
     SPP_PER_DISPATCH = 1
+    # the process's rank: a sharded engine's ranks other than 0 write nothing
+    rank = 0
 
     def __init__(self, scene, width: int = 640, height: int = 480,
                  device='cuda', skydome: str | None = None,
@@ -385,12 +387,12 @@ class Pathtracer:
         self.dyn = scene.dynamic_arrays(self.device)
         self.radiance = init_radiance_state(int(self.arrays.tri_mat.shape[0]),
                                             self.device)
-        self.lum, self.alb = film.clear_accumulators(width * height, self.device)
         self.sample_idx = 0
         self.rand_idx = 0
         self.rays_traced = 0
         self._set_bands(band_geometry(width, height, self.spp,
                                       self.MAX_LANES_PER_DISPATCH)[0])
+        self._clear_accumulators()
 
     def _set_bands(self, bands: int):
         """Fix the band geometry (bands must divide the height) and the
@@ -402,6 +404,21 @@ class Pathtracer:
         self.band_h = self.height // bands
         self.tile_order = self.width % 16 == 0 and self.band_h % 8 == 0
         self.bn_bands = self._bn_bands()
+
+    def _owned_bands(self) -> range:
+        """The bands this engine renders and whose accumulators it holds,
+        in order: every band here (a rank of the sharded engine holds its
+        own)."""
+        return range(self.bands)
+
+    def _full_height(self) -> int:
+        """The frame height the camera frames: the engine's height here
+        (the sharded engine's requested one, below its pad rows)."""
+        return self.height
+
+    def _clear_accumulators(self):
+        n = len(self._owned_bands()) * self.band_h * self.width
+        self.lum, self.alb = film.clear_accumulators(n, self.device)
 
     def _bn_bands(self):
         """The blue-noise texel of each lane's pixel, per band, in
@@ -422,8 +439,7 @@ class Pathtracer:
         the scene's handlers read the time in ``Scene.update``."""
         if should_clear:
             self.dyn = self.scene.dynamic_arrays(self.device)
-            self.lum, self.alb = film.clear_accumulators(
-                self.width * self.height, self.device)
+            self._clear_accumulators()
             self.sample_idx = 0
             self.rand_idx = 0
         n_samples = self.scene.interactive_depth if should_clear else 1
@@ -446,22 +462,31 @@ class Pathtracer:
 
     def _sample_dispatch(self, camera, guide: bool, max_bounces: int,
                          spp: int):
-        """One dispatch over the whole frame: render_sample band by band,
-        each from the same rand_idx, their guiding sums added and the EMA
-        run once per sample. Returns (the largest rand_idx a band reached,
-        rays traced)."""
+        """One dispatch over the whole frame: the band loop, then the EMA
+        once per sample on the bands' summed guiding tables. Returns (the
+        largest rand_idx a band reached, rays traced)."""
+        ridx, rays, sums = self._render_bands(camera, guide, max_bounces, spp)
+        if guide:
+            self._propagate(*sums, spp)
+        return ridx, rays
+
+    def _render_bands(self, camera, guide: bool, max_bounces: int, spp: int):
+        """render_sample over the owned bands, each from the same rand_idx,
+        into ``lum``/``alb``. Returns (the largest rand_idx a band reached,
+        rays traced, the bands' raw guiding (sum, count) added left to right
+        or None without ``guide``)."""
         lum_parts, alb_parts = [], []
         gsum = gcnt = None
         ridx, rays = self.rand_idx, 0
         bl = self.band_h * self.width
-        for b in range(self.bands):
-            sl = slice(b * bl, (b + 1) * bl)
+        for j, b in enumerate(self._owned_bands()):
+            sl = slice(j * bl, (j + 1) * bl)
             lum_b, alb_b, sums, ridx_b, rays_b = render_sample(
                 self.arrays, self.dyn, camera, self.radiance,
                 self.lum[sl], self.alb[sl], self.sample_idx, self.rand_idx,
                 guide, self.bn_bands[b], nee=self.nee, cache_on=self.cache,
                 max_bounces=max_bounces, width=self.width,
-                height=self.band_h, full_height=self.height,
+                height=self.band_h, full_height=self._full_height(),
                 row_offset=b * self.band_h, tile_order=self.tile_order,
                 spp=spp)
             lum_parts.append(lum_b)
@@ -473,13 +498,23 @@ class Pathtracer:
             rays = rays + rays_b
         self.lum = torch.cat(lum_parts)
         self.alb = torch.cat(alb_parts)
-        if guide:
-            if spp == 1:
-                gsum, gcnt = gsum[None], gcnt[None]
-            for s in range(spp):
-                self.radiance = propagate(self.radiance, gsum[s], gcnt[s],
-                                          True)
-        return ridx, rays
+        return ridx, rays, ((gsum, gcnt) if guide else None)
+
+    def _propagate(self, gsum, gcnt, spp: int):
+        """The guiding EMA once per sample of a dispatch, on the raw summed
+        tables ([T, 8], or [spp, T, 8] when ``spp > 1``)."""
+        if spp == 1:
+            gsum, gcnt = gsum[None], gcnt[None]
+        for s in range(spp):
+            self.radiance = propagate(self.radiance, gsum[s], gcnt[s], True)
+
+    def gather_lanes(self):
+        """(lum, alb) of the whole frame in lane order."""
+        return self.lum, self.alb
+
+    def keep_lanes(self, lum, alb):
+        """Take whole-frame lane-order accumulators (a checkpoint's)."""
+        self.lum, self.alb = lum, alb
 
     def finish(self):
         """Application::Finish: wait for the device."""

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from ..utils.image import decode_png
+from .jpeg import decode_jpeg
 
 
 def _read_hdr(path: str) -> np.ndarray:
@@ -60,25 +61,31 @@ def _read_hdr(path: str) -> np.ndarray:
 
 def load_image(path: str) -> np.ndarray:
     """Decode an image to linear float32 [H, W, C], bottom row first. Reads
-    Radiance ``.hdr`` and 8-bit ``.png`` files with the standard library
-    (the machine with the card has no imaging package). Other formats raise
-    NotImplementedError, which the skydome search does not take for a
-    missing file: the JAX package reads them (JPEG, ...) with PIL, so a
-    fallback here would render another sky."""
+    Radiance ``.hdr``, 8-bit ``.png`` and JPEG files without an imaging
+    package (the machine with the card has none): JPEG through
+    ``scene/jpeg.py``, whose pixels are PIL's, so a JPEG loads as in the
+    JAX package (grey as [H, W, 1]). Other formats, and the JPEG features
+    that decoder refuses, raise NotImplementedError, which the skydome
+    search does not take for a missing file: the JAX package reads them
+    with PIL, so a fallback here would render another sky."""
     low = path.lower()
     if low.endswith('.hdr'):
         img = _read_hdr(path)
-    elif low.endswith('.png'):
+    elif low.endswith(('.png', '.jpg', '.jpeg')):
         with open(path, 'rb') as f:
-            px = decode_png(f.read())
-        if px.shape[-1] == 2:      # grey + alpha reads as RGB, as in PIL
-            px = np.repeat(px[..., :1], 3, axis=-1)
+            data = f.read()
+        if low.endswith('.png'):
+            px = decode_png(data)
+            if px.shape[-1] == 2:      # grey + alpha reads as RGB, as in PIL
+                px = np.repeat(px[..., :1], 3, axis=-1)
+        else:
+            px = decode_jpeg(data)
         img = px.astype(np.float32) / 255.0
     else:
         if not os.path.exists(path):
             raise FileNotFoundError(path)
-        raise NotImplementedError(f'{path}: the port reads .hdr and .png '
-                                  f'images only')
+        raise NotImplementedError(f'{path}: the port reads .hdr, .png and '
+                                  f'JPEG images only')
     return np.ascontiguousarray(img[::-1])
 
 

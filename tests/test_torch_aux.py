@@ -257,21 +257,27 @@ def test_png_decode_every_filter_type():
 
 
 def test_jpeg_sky_is_refused_not_replaced(tmp_path):
-    """The JAX package reads a JPEG sky with PIL. The port has no JPEG
-    decoder, so a ``skydome.jpg`` on the asset path stops ``to_device``
-    rather than falling back to the grey sky that a missing file gets."""
+    """A ``skydome.jpg`` on the asset path is decoded as the JAX package
+    decodes it (with PIL); one that uses a feature the port's decoder
+    refuses (here arithmetic coding) stops ``to_device`` rather than
+    falling back to the grey sky that a missing file gets."""
+    import _torch_jpeg
     from _torch_room import build_room
     from cuda_pathtracer_tpu.scene.textures import load_image as jload
     from cuda_pathtracer_tpu_torch.scene import builder as tbuilder
     from cuda_pathtracer_tpu_torch.scene import scene as tscene
     from cuda_pathtracer_tpu_torch.scene.textures import load_image as tload
     path = tmp_path / 'skydome.jpg'
-    Image.fromarray(np.full((4, 8, 3), 200, np.uint8)).save(path)
+    Image.fromarray(_torch_jpeg.picture(4, 8)).save(path)
     assert jload(str(path)).shape == (4, 8, 3)
-    with pytest.raises(NotImplementedError):
-        tload(str(path))
+    np.testing.assert_array_equal(tload(str(path)), jload(str(path)))
     s = build_room(tscene, tbuilder.add_cube)
     s.asset_dirs = [str(tmp_path)]
+    np.testing.assert_array_equal(s.to_device('cpu').sky_img.numpy(),
+                                  jload(str(path)))
+    path.write_bytes(_torch_jpeg.refused()['arithmetic'])
+    with pytest.raises(NotImplementedError, match='arithmetic'):
+        tload(str(path))
     with pytest.raises(NotImplementedError):
         s.to_device('cpu')
     s.asset_dirs = [str(tmp_path / 'missing')]

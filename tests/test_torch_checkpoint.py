@@ -9,7 +9,8 @@ package's own resumed render: the same sample and ``rand_idx``, the same
 camera, at least 99% of the pixels within 1e-3 relative + 1e-5 absolute
 (in pixel order) and the energy to 1e-3 relative, as the room tests hold
 the two engines. The two checkpoints hold the same keys, shapes and values
-(to that tolerance), and a checkpoint of another resolution is refused.
+(to that tolerance) but the port's band geometry, and a checkpoint of
+another resolution or, from the port, another band geometry is refused.
 """
 import numpy as np
 import pytest
@@ -89,8 +90,12 @@ def test_resumed_render_matches_jax(runs, key):
 
 
 def test_checkpoints_hold_the_same_state(runs):
+    jpt = runs['jax'][0]
     with np.load(runs['paths']['jax']) as j, np.load(runs['paths']['port']) as t:
-        assert sorted(j.files) == sorted(t.files)
+        # the port also names the band geometry of the lane order
+        assert sorted(j.files + ['bands', 'tile_order']) == sorted(t.files)
+        assert (int(t['bands']), bool(t['tile_order'])) == \
+            (jpt.bands, jpt.tile_order)
         for k in j.files:
             assert j[k].shape == t[k].shape, k
             if k in ('lum', 'alb', 'radiance_cache', 'radiance_total'):
@@ -107,3 +112,12 @@ def test_checkpoint_rejects_mismatched_engine(runs):
     other = tptm.Pathtracer(build_room(ts, add_cube), W * 2, H, device='cpu')
     with pytest.raises(AssertionError, match='resolution'):
         tck.load_checkpoint(runs['paths']['jax'], other)
+
+
+def test_checkpoint_rejects_other_band_geometry(runs):
+    """The port's checkpoint (2 bands, written under the lowered lane cap)
+    into an engine at the default cap (1 band): same size, other lanes."""
+    other = _port()
+    assert (other.bands, other.tile_order) == (1, True)
+    with pytest.raises(AssertionError, match='band geometry'):
+        tck.load_checkpoint(runs['paths']['port'], other)

@@ -13,9 +13,8 @@ same random numbers.
 way, v2 and v1: at least 99.5% of the pixels identical, no energy line, the
 same state file. A ``--checkpoint`` that one package writes at 6 spp
 resumes in the other's ``--resume`` to 7 spp as it does in the JAX CLI's
-(99% of the pixels identical, the energy to 1e-4). The option the
-port has not got yet (``--shard``) exits non-zero; scene scripts are
-``tests/test_torch_chai.py``'s.
+(99% of the pixels identical, the energy to 1e-4). Scene scripts are
+``tests/test_torch_chai.py``'s, ``--shard`` is ``tests/test_torch_mesh.py``'s.
 """
 import contextlib
 import io
@@ -169,10 +168,3 @@ def test_cli_checkpoint_resumes_across_packages(assets, jax_resumed, writer):
     same = (img == jimg).all(axis=2).mean()
     assert same >= 0.99, same
     np.testing.assert_allclose(_energy(err), _energy(jerr), rtol=1e-4)
-
-
-@pytest.mark.parametrize('extra', [['--shard']],
-                         ids=lambda e: e[0].lstrip('-'))
-def test_unported_options_exit_nonzero(extra, capsys):
-    assert tmain.main([*extra, '--device', 'cpu']) != 0
-    assert 'not ported yet' in capsys.readouterr().err

@@ -4,7 +4,10 @@ builder compiled without OpenMP (the compiler on ``CXX`` refuses
 ``-fopenmp``, as one with no libgomp does), build the small room, render
 16x8 on the CPU (path tracer and Whitted raytracer), build ``minecraft``,
 run the port's CLI on ``outside`` at 16x8 on the CPU (path mode with a
-checkpoint, a resume of it, and ray mode) and on a ``.chai`` script, run
+checkpoint, a resume of it, and ray mode) and on a ``.chai`` script, decode
+a JPEG with the port's decoder (compiled by that compiler), run ``--shard``
+at one rank with a JPEG sky through the entry point that the CLI's
+spawned ranks run, run
 the eight probe modules of
 ``cuda_pathtracer_tpu_torch/tools`` on their plain versions
 (``lab_v1_probe`` builds its scene and waves with the port alone), and check
@@ -74,6 +77,24 @@ rc = main(common + ['--spp', '7', '--resume', OUT + '/c.npz'])
 assert rc == 0
 rc = main(common + ['--mode', 'ray', '--out', OUT + '/r.png'])
 assert rc == 0 and os.path.getsize(OUT + '/r.png') > 0
+from cuda_pathtracer_tpu_torch.scene import jpeg
+jpeg._BUILD_DIR = OUT + '/build'
+import shutil
+shutil.copy(os.path.join(HERE, 'data', 'jpeg', 'sky_256x128.jpg'),
+            OUT + '/skydome.jpg')
+assert jpeg.decode_jpeg(open(OUT + '/skydome.jpg', 'rb').read()).shape == \
+    (128, 256, 3)
+# --shard on the CPU: one rank, through the entry point a spawned rank runs
+from cuda_pathtracer_tpu_torch import __main__ as cli
+shard = common + ['--shard', '--spp', '2', '--asset-dir', OUT, '--out',
+                  OUT + '/sh.png']
+try:
+    cli._rank_process(shard, 0, 1, OUT + '/store')
+except SystemExit as e:
+    assert e.code == 0, e.code
+assert os.path.getsize(OUT + '/sh.png') > 0
+import torch.distributed
+assert not torch.distributed.is_initialized()
 import contextlib, io
 from cuda_pathtracer_tpu_torch.tools import (
     bf16_probe, decision_probe, gather_probe, lab_v1_probe, onehot_probe,
@@ -121,7 +142,8 @@ def test_port_sources_import_nothing_of_the_jax_package():
         files += [os.path.join(root, n) for n in names if n.endswith('.py')]
     assert len(files) > 30
     assert {'raytracer.py', 'display.py', 'checkpoint.py', 'focus.py',
-            'keyboard.py', 'profiling.py', 'chai.py'} <= {os.path.basename(f)
+            'keyboard.py', 'profiling.py', 'chai.py', 'mesh.py',
+            'jpeg.py'} <= {os.path.basename(f)
                                                 for f in files}
     bad = []
     for f in files:
