@@ -4,8 +4,8 @@
     python3 chip_smoke.py --cards 4     # only --shard across 4 cards
 
 Builds the twelve hand-written CUDA kernels from ``cuda_pathtracer_tpu_torch/
-csrc`` and drives the port's render paths once at full size (phases 1-3,
-5 and 6), then the eight probe kernels' sweeps (phase 4, run last):
+csrc`` and drives the port's render paths once at full size (phases 1-3
+and 5-7), then the eight probe kernels' sweeps (phase 4, run last):
 
 1. the converge path: the sibenik scene at 1920x1080, one clear frame, 4
    converge samples (32 bounces, NEE, guiding training) and the blurred
@@ -114,6 +114,21 @@ inputs (for the traversals, the node and leaf visits of the plain walks).
    decodes in ``digests.json``, then ``outside`` at 1920x1080 with a
    fixture as ``skydome.jpg``: its ``sky_img`` equals the decode and its
    image differs from the grey-sky render.
+7. images (``run_images``, after phase 6): (a) every fixture of
+   ``tests/data/images`` (PNG, TGA, BMP, GIF, PNM) decoded to the digests
+   of PIL's decodes (mode, shape, SHA-256); (b) a 4096x2048 RGB PNG sky
+   whose rows cycle through the five filter types, the same sky Adam7-
+   interlaced, a 2048x2048 RLE RGBA TGA and a 2048x2048 8-bit palette BMP,
+   encoded from seeded arrays by ``tests/_torch_images.py`` and decoded on
+   the host equal to them, each with its decode seconds beside the card's
+   name and power limit; (c) ``outside`` at 1920x1080 with the PNG as its
+   sky (a clear frame, 2 samples, the blurred image): ``sky_img`` equals
+   the decode, energy finite and unlike the grey sky's; the quad room of
+   ``tests/test_torch_images.py`` at 1920x1080 with the TGA as ``map_Kd``
+   and the BMP as ``norm``: texels equal the decodes, energy finite and
+   > 0; each render with its launch counts set to 0 just before it,
+   ``traverse`` and ``blur`` required; (d) a palette PNG sky loads and a
+   truncated one raises OSError instead of leaving the grey sky.
 
 ``--cards N`` runs only ``--shard`` across N cards of one host, one rank per
 card on NCCL (``run_cards``): N spawned ranks held to the single engine at
@@ -987,6 +1002,194 @@ def run_shard(tmp: str, failures: list) -> dict:
         f'decode: {sky_ok}; image max|d| against the grey sky {differs:.4f}')
     if not sky_ok or not differs > 0:
         failures.append('6d: the JPEG sky did not load or did not show')
+    return counts
+
+
+IMAGE_DIR = 'tests/data/images'
+# phase 7's real sizes: a 4096x2048 sky, 2048x2048 textures
+SKY_W, SKY_H, TEX = 4096, 2048, 2048
+QUAD_OBJ = ('mtllib quad.mtl\nv -2 0 0\nv 2 0 0\nv 2 3 0\nv -2 3 0\n'
+            'vt 0 0\nvt 1 0\nvt 1 1\nvt 0 1\nusemtl painted\n'
+            'f 1/1 2/2 3/3\nf 1/1 3/3 4/4\n')
+QUAD_MTL = 'newmtl painted\nKd 0.9 0.9 0.9\nmap_Kd tex.tga\nnorm nrm.bmp\n'
+QUAD_CAMERA = ([0.5, 1.5, -6.0], [0.0, 0.1, 1.0], 1.5, 6.0, 0.0)
+
+
+def quad_room(scene_mod, asset_dir: str):
+    """The quad room of ``tests/test_torch_images.py``: a quad with the
+    MTL's ``map_Kd`` and ``norm`` over a plane."""
+    s = scene_mod.Scene(asset_dirs=[asset_dir])
+    white = s.add_material(scene_mod.Material.DIFFUSE((0.9, 0.9, 0.9)))
+    s.add_object(scene_mod.GameObject(s.add_model('quad.obj', 1.0, (0, 0, 0),
+                                                  (0, 0, 0), white, True)))
+    s.add_plane(scene_mod.Plane((0.0, 1.0, 0.0), 0.0, white))
+    s.finalize()
+    return s
+
+
+def run_images(card: str, tmp: str, failures: list) -> dict:
+    """Phase 7: image decoding. (a) every fixture of ``tests/data/images``
+    to the digests PIL wrote (mode, shape, SHA-256); (b) a 4096x2048 RGB
+    PNG sky whose rows cycle through the five filter types, the same sky
+    Adam7-interlaced, a 2048x2048 RLE RGBA TGA and a 2048x2048 8-bit
+    palette BMP, encoded here from seeded arrays (``tests/_torch_images.py``)
+    and decoded equal to them, with each one's host decode seconds; (c)
+    ``outside`` at 1920x1080 with the PNG as its sky (a clear frame, 2
+    samples, the blurred image) against the grey sky, and the quad room at
+    1920x1080 with the TGA as ``map_Kd`` and the BMP as ``norm``, each with
+    its launch counts set to 0 just before it; (d) a palette PNG sky loads
+    and a truncated one raises. Returns {run: launches}."""
+    import hashlib
+    import numpy as np
+    import torch
+    import _torch_images as ti
+    from cuda_pathtracer_tpu_torch.core.camera import Camera
+    from cuda_pathtracer_tpu_torch.models.pathtracer import Pathtracer
+    from cuda_pathtracer_tpu_torch.ops import kernels
+    from cuda_pathtracer_tpu_torch.scene import builder, images
+    from cuda_pathtracer_tpu_torch.scene import scene as scene_mod
+    from cuda_pathtracer_tpu_torch.scene.textures import load_image
+    here = os.path.dirname(os.path.abspath(__file__))
+    counts = {}
+
+    # (a) the fixtures against PIL's digests
+    with open(os.path.join(here, IMAGE_DIR, 'digests.json')) as f:
+        manifest = json.load(f)
+    digests, bad = manifest['files'], []
+    t = time.perf_counter()
+    for name, d in sorted(digests.items()):
+        with open(os.path.join(here, IMAGE_DIR, name), 'rb') as f:
+            px, mode = images.decode_image(f.read(), name)
+        if (mode, list(px.shape), hashlib.sha256(px.tobytes()).hexdigest()) \
+                != (d['mode'], d['shape'], d['sha256']):
+            bad.append(name)
+    log(f'phase 7a: {len(digests) - len(bad)} of {len(digests)} image '
+        f'fixtures decode to the digests of Pillow {manifest["pillow"]} '
+        f'({time.perf_counter() - t:.2f} s, the decoder build included)')
+    if bad:
+        failures.append(f'7a: image decodes differ from PIL: {bad}')
+
+    # (b) real sizes, from seeded arrays through the in-repo encoders
+    sky = ti.picture(SKY_H, SKY_W, 3, seed=70)
+    tex = ti.picture(TEX, TEX, 4, seed=71, runs=4)
+    idx = ti.picture(TEX, TEX, 1, seed=72)[..., 0]
+    palette = np.random.RandomState(73).randint(0, 256, (256, 3)).astype(
+        np.uint8)
+    files = {
+        'sky.png': (ti.encode_png(sky, 8, 2), sky),
+        'sky_adam7.png': (ti.encode_png(sky, 8, 2, interlace=True), sky),
+        'tex.tga': (ti.encode_tga(tex[..., [2, 1, 0, 3]], 10, 32), tex),
+        'nrm.bmp': (ti.encode_bmp(idx, 8, palette), palette[idx]),
+    }
+    decodes = {}
+    for name, (data, want) in files.items():
+        with open(os.path.join(tmp, name), 'wb') as f:
+            f.write(data)
+        t = time.perf_counter()
+        px, mode = images.decode_image(data, name)
+        secs = time.perf_counter() - t
+        decodes[name] = px
+        ok = px.shape == want.shape and np.array_equal(px, want)
+        log(f'phase 7b: {name} {want.shape[1]}x{want.shape[0]} {mode}, '
+            f'{len(data)} bytes: host decode {secs:.4f} s, equal to its '
+            f'source: {ok} | {card}')
+        if not ok:
+            failures.append(f'7b: {name} does not decode to its source')
+
+    # (c) renders: the PNG sky on outside against the grey sky, and the
+    # quad room with the TGA map_Kd and the BMP norm
+    cam = Camera.create([0.0, 4.0, -17.0], [0.0, -0.2, 1.0], 1.5, 12.0, 0.02,
+                        device='cuda')
+    no_sky = os.path.join(tmp, 'no-sky')
+    os.makedirs(no_sky)
+    imgs, energy = {}, {}
+    for tag, dirs, sky_name in (('png', [tmp], 'sky.png'),
+                                ('grey', [no_sky], None)):
+        pt = Pathtracer(builder.get_scene('outside', asset_dirs=dirs), WIDTH,
+                        HEIGHT, device='cuda', skydome=sky_name)
+        if tag == 'png':
+            sky_ok = torch.equal(pt.arrays.sky_img.cpu(), torch.from_numpy(
+                load_image(os.path.join(tmp, 'sky.png'))))
+        kernels.reset_counts()
+        for clear in (True, False, False):
+            pt.render(cam, 5.0, should_clear=clear)
+        imgs[tag] = pt.image(blur=True).cpu()
+        torch.cuda.synchronize()
+        counts[f'7c {tag}'] = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        check_launches(f'7c outside, {tag} sky', counts[f'7c {tag}'],
+                       dict(kernels.PLAIN_ON_CUDA), ('traverse', 'blur'),
+                       failures)
+        energy[tag] = pt.energy()
+        del pt
+    differs = float((imgs['png'] - imgs['grey']).abs().max())
+    log(f'phase 7c: outside {WIDTH}x{HEIGHT} with the {SKY_W}x{SKY_H} PNG '
+        f'sky: sky_img equals the decode: {sky_ok}; energy {energy["png"]} '
+        f'(grey sky {energy["grey"]}); image max|d| against the grey sky '
+        f'{differs:.4f}')
+    e, nan, neg = energy['png']
+    if not sky_ok or not differs > 0 or not np.isfinite(e) or nan or \
+            e == energy['grey'][0]:
+        failures.append('7c: the PNG sky did not load or did not show')
+    with open(os.path.join(tmp, 'quad.obj'), 'w') as f:
+        f.write(QUAD_OBJ)
+    with open(os.path.join(tmp, 'quad.mtl'), 'w') as f:
+        f.write(QUAD_MTL)
+    pt = Pathtracer(quad_room(scene_mod, tmp), WIDTH, HEIGHT, device='cuda',
+                    skydome='sky_adam7.png')
+    texels = pt.arrays.textures.texels.cpu().numpy()
+    want = np.concatenate([
+        (decodes[n][..., :3][::-1].astype(np.float32) / 255.0).reshape(-1, 3)
+        for n in ('tex.tga', 'nrm.bmp')])
+    tex_ok = texels.shape == want.shape and np.array_equal(texels, want)
+    kernels.reset_counts()
+    qcam = Camera.create(*QUAD_CAMERA, device='cuda')
+    for clear in (True, False, False):
+        pt.render(qcam, should_clear=clear)
+    img = pt.image(blur=True)
+    torch.cuda.synchronize()
+    counts['7c quad'] = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    check_launches('7c quad room', counts['7c quad'],
+                   dict(kernels.PLAIN_ON_CUDA), ('traverse', 'blur'), failures)
+    e, nan, neg = pt.energy()
+    log(f'phase 7c: quad room {WIDTH}x{HEIGHT}, TGA map_Kd and BMP norm '
+        f'({TEX}x{TEX} each): texels equal the decodes: {tex_ok}; energy {e} '
+        f'(NaN {nan}, negative {neg}); image finite '
+        f'{bool(torch.isfinite(img).all())}')
+    if not tex_ok or not np.isfinite(e) or not e > 0 or nan:
+        failures.append('7c: the quad room\'s textures did not load or it '
+                        'rendered no energy')
+    del pt, img
+
+    # (d) ROADMAP C.9 on the card: a palette PNG sky loads, a truncated
+    # one raises instead of leaving the grey sky
+    pal_png = ti.encode_png(idx[:256, :512, None] % 64, 8, 3,
+                            palette=palette[:64])
+    c9 = os.path.join(tmp, 'c9')
+    os.makedirs(c9)
+    with open(os.path.join(c9, 'quad.obj'), 'w') as f:
+        f.write(QUAD_OBJ.replace('mtllib quad.mtl\n', '').replace(
+            'usemtl painted\n', ''))
+    with open(os.path.join(c9, 'sky.png'), 'wb') as f:
+        f.write(pal_png)
+    pt = Pathtracer(quad_room(scene_mod, c9), 64, 48, device='cuda',
+                    skydome='sky.png')
+    loaded = torch.equal(pt.arrays.sky_img.cpu(), torch.from_numpy(
+        (palette[:64][idx[:256, :512] % 64][::-1].astype(np.float32) / 255.0)))
+    del pt
+    with open(os.path.join(c9, 'sky.png'), 'wb') as f:
+        f.write(pal_png[:len(pal_png) // 2])
+    try:
+        Pathtracer(quad_room(scene_mod, c9), 64, 48, device='cuda',
+                   skydome='sky.png')
+        raised = 'nothing'
+    except OSError as e:
+        raised = f'OSError ({e})'
+    log(f'phase 7d: a palette PNG sky loads as its palette colours: {loaded};'
+        f' a truncated one raises {raised}')
+    if not loaded or not raised.startswith('OSError'):
+        failures.append('7d: the palette sky did not load, or the truncated '
+                        'one did not raise')
+    torch.cuda.empty_cache()
     return counts
 
 
@@ -2109,6 +2312,14 @@ def main() -> int:
         shard = run_shard(tmp, failures)
         log(f'phase 6 (--shard, JPEG): {time.perf_counter() - t:.1f} s wall; '
             f'launches per run {shard}')
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        sys.path.insert(0, os.path.join(os.path.dirname(
+            os.path.abspath(__file__)), 'tests'))
+        imgs = run_images(card, tmp, failures)
+        log(f'phase 7 (images): {time.perf_counter() - t:.1f} s wall; '
+            f'launches per run {imgs}')
 
     run_probes(launches, results, failures)
 

@@ -15,8 +15,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..utils.image import decode_png
-from .jpeg import decode_jpeg
+from .images import decode_image
 
 
 def _read_hdr(path: str) -> np.ndarray:
@@ -60,32 +59,21 @@ def _read_hdr(path: str) -> np.ndarray:
 
 
 def load_image(path: str) -> np.ndarray:
-    """Decode an image to linear float32 [H, W, C], bottom row first. Reads
-    Radiance ``.hdr``, 8-bit ``.png`` and JPEG files without an imaging
-    package (the machine with the card has none): JPEG through
-    ``scene/jpeg.py``, whose pixels are PIL's, so a JPEG loads as in the
-    JAX package (grey as [H, W, 1]). Other formats, and the JPEG features
-    that decoder refuses, raise NotImplementedError, which the skydome
-    search does not take for a missing file: the JAX package reads them
-    with PIL, so a fallback here would render another sky."""
-    low = path.lower()
-    if low.endswith('.hdr'):
+    """Decode an image to linear float32 [H, W, C], bottom row first, as the
+    JAX package's PIL path does: Radiance ``.hdr`` by its extension, every
+    other file through ``scene/images.py::decode_image``, which identifies
+    it by its content (PNG, JPEG, BMP, GIF, PNM, and TGA when it is named
+    ``.tga``) and applies PIL's mode table (C = 1 for grey, 4 for RGBA, 3
+    for the rest). A missing file raises FileNotFoundError; malformed files
+    and the formats and JPEG features the port does not read raise OSError,
+    ValueError or NotImplementedError as ``decode_image`` says, so the
+    skydome search never takes them for a missing file."""
+    if path.lower().endswith('.hdr'):
         img = _read_hdr(path)
-    elif low.endswith(('.png', '.jpg', '.jpeg')):
-        with open(path, 'rb') as f:
-            data = f.read()
-        if low.endswith('.png'):
-            px = decode_png(data)
-            if px.shape[-1] == 2:      # grey + alpha reads as RGB, as in PIL
-                px = np.repeat(px[..., :1], 3, axis=-1)
-        else:
-            px = decode_jpeg(data)
-        img = px.astype(np.float32) / 255.0
     else:
-        if not os.path.exists(path):
-            raise FileNotFoundError(path)
-        raise NotImplementedError(f'{path}: the port reads .hdr, .png and '
-                                  f'JPEG images only')
+        with open(path, 'rb') as f:
+            px, _ = decode_image(f.read(), path)
+        img = px.astype(np.float32) / 255.0
     return np.ascontiguousarray(img[::-1])
 
 

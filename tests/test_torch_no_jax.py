@@ -5,7 +5,9 @@ builder compiled without OpenMP (the compiler on ``CXX`` refuses
 16x8 on the CPU (path tracer and Whitted raytracer), build ``minecraft``,
 run the port's CLI on ``outside`` at 16x8 on the CPU (path mode with a
 checkpoint, a resume of it, and ray mode) and on a ``.chai`` script, decode
-a JPEG with the port's decoder (compiled by that compiler), run ``--shard``
+a JPEG with the port's decoder (compiled by that compiler) and one image
+fixture of each other format to PIL's digests with the image decoder,
+build the room with a palette-PNG sky, run ``--shard``
 at one rank with a JPEG sky through the entry point that the CLI's
 spawned ranks run, run
 the eight probe modules of
@@ -84,6 +86,27 @@ shutil.copy(os.path.join(HERE, 'data', 'jpeg', 'sky_256x128.jpg'),
             OUT + '/skydome.jpg')
 assert jpeg.decode_jpeg(open(OUT + '/skydome.jpg', 'rb').read()).shape == \
     (128, 256, 3)
+# one image fixture of each format to PIL's digests, and a palette-PNG sky
+import hashlib, json
+from cuda_pathtracer_tpu_torch.scene import images
+images._BUILD_DIR = OUT + '/build'
+IMAGES = os.path.join(HERE, 'data', 'images')
+with open(os.path.join(IMAGES, 'digests.json')) as f:
+    digests = json.load(f)['files']
+for fmt in ('png', 'tga', 'bmp', 'gif', 'pnm'):
+    name = sorted(n for n in digests if n.startswith(fmt + '_'))[0]
+    with open(os.path.join(IMAGES, name), 'rb') as f:
+        px, mode = images.decode_image(f.read(), name)
+    d = digests[name]
+    assert (mode, list(px.shape), hashlib.sha256(px.tobytes()).hexdigest()) \
+        == (d['mode'], d['shape'], d['sha256']), name
+os.makedirs(OUT + '/palsky')
+shutil.copy(os.path.join(IMAGES, 'png_palette8_trns.png'),
+            OUT + '/palsky/sky.png')
+room = build_room(scene, builder.add_cube)
+room.asset_dirs = [OUT + '/palsky']
+sky = room.to_device('cpu', skydome='sky.png').sky_img
+assert sky.shape == (19, 23, 3) and not bool((sky == 0.5).all())
 # --shard on the CPU: one rank, through the entry point a spawned rank runs
 from cuda_pathtracer_tpu_torch import __main__ as cli
 shard = common + ['--shard', '--spp', '2', '--asset-dir', OUT, '--out',
@@ -143,7 +166,7 @@ def test_port_sources_import_nothing_of_the_jax_package():
     assert len(files) > 30
     assert {'raytracer.py', 'display.py', 'checkpoint.py', 'focus.py',
             'keyboard.py', 'profiling.py', 'chai.py', 'mesh.py',
-            'jpeg.py'} <= {os.path.basename(f)
+            'jpeg.py', 'images.py'} <= {os.path.basename(f)
                                                 for f in files}
     bad = []
     for f in files:
