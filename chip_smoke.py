@@ -115,9 +115,9 @@ inputs (for the traversals, the node and leaf visits of the plain walks).
    fixture as ``skydome.jpg``: its ``sky_img`` equals the decode and its
    image differs from the grey-sky render.
 7. images (``run_images``, after phase 6): (a) every fixture of
-   ``tests/data/images`` (PNG, TGA, BMP, GIF, PNM) decoded to the digests
-   of PIL's decodes (mode, shape, SHA-256); (b) a 4096x2048 RGB PNG sky
-   whose rows cycle through the five filter types, the same sky Adam7-
+   ``tests/data/images`` (PNG, TGA, BMP, GIF, PNM, PSD) decoded to the
+   digests of PIL's decodes (mode, shape, SHA-256); (b) a 4096x2048 RGB PNG
+   sky whose rows cycle through the five filter types, the same sky Adam7-
    interlaced, a 2048x2048 RLE RGBA TGA and a 2048x2048 8-bit palette BMP,
    encoded from seeded arrays by ``tests/_torch_images.py`` and decoded on
    the host equal to them, each with its decode seconds beside the card's
@@ -128,7 +128,14 @@ inputs (for the traversals, the node and leaf visits of the plain walks).
    and the BMP as ``norm``: texels equal the decodes, energy finite and
    > 0; each render with its launch counts set to 0 just before it,
    ``traverse`` and ``blur`` required; (d) a palette PNG sky loads and a
-   truncated one raises OSError instead of leaving the grey sky.
+   truncated one raises OSError instead of leaving the grey sky; (e)
+   (``run_refused_images``) the files the port once refused, encoded from
+   seeded arrays: a 4096x2048 progressive arithmetic-coded JPEG of a
+   smooth sky, a 1024x512 CMYK JPEG and a 4096x2048 PackBits RGB PSD, each
+   decoded on the host (the PSD to its array; each JPEG to a second
+   coder's decode of the same coefficients) with its seconds beside the
+   card, then ``outside`` at 1920x1080 with the arithmetic file as
+   ``skydome.jpg`` as in (c).
 
 ``--cards N`` runs only ``--shard`` across N cards of one host, one rank per
 card on NCCL (``run_cards``): N spawned ranks held to the single engine at
@@ -1189,8 +1196,110 @@ def run_images(card: str, tmp: str, failures: list) -> dict:
     if not loaded or not raised.startswith('OSError'):
         failures.append('7d: the palette sky did not load, or the truncated '
                         'one did not raise')
+
+    # (e) the files the port once refused, at sky size, then the
+    # arithmetic-coded one as outside's skydome.jpg
+    run_refused_images(card, tmp, imgs['grey'], energy['grey'], counts,
+                       failures)
     torch.cuda.empty_cache()
     return counts
+
+
+def run_refused_images(card: str, tmp: str, grey_img, grey_energy,
+                       counts: dict, failures: list):
+    """Phase 7e: a 4096x2048 progressive arithmetic-coded JPEG sky (a
+    smooth picture, restart markers every 64 MCUs), a 1024x512 CMYK JPEG
+    with an Adobe marker and a 4096x2048 PackBits RGB PSD, encoded here from
+    seeded arrays (``tests/_torch_jpeg.py``, ``tests/_torch_images.py``).
+    The PSD must decode to its array; each JPEG to the decode of a second
+    file of the same quantized coefficients through another entropy coder
+    (a sequential arithmetic one, a Huffman one), and within 24 of its
+    array (the loss of quantization). Each host decode's seconds are
+    printed beside the card. Then ``outside`` at 1920x1080 with the
+    arithmetic file as ``skydome.jpg``: a clear frame, 2 samples, the
+    blurred image; ``sky_img`` equals the decode, the energy is finite and
+    unlike the grey sky's; launch counts set to 0 just before,
+    ``traverse`` and ``blur`` required."""
+    import numpy as np
+    import torch
+    import _torch_images as ti
+    import _torch_jpeg as tj
+    from cuda_pathtracer_tpu_torch.core.camera import Camera
+    from cuda_pathtracer_tpu_torch.models.pathtracer import Pathtracer
+    from cuda_pathtracer_tpu_torch.ops import kernels
+    from cuda_pathtracer_tpu_torch.scene import builder, images
+    from cuda_pathtracer_tpu_torch.scene.jpeg import decode_jpeg
+    from cuda_pathtracer_tpu_torch.scene.textures import load_image
+    t = time.perf_counter()
+    sky = tj.smooth_picture(SKY_H, SKY_W, seed=75)
+    blocks = tj.quantized(sky, tj.F420)
+    arith = tj.encode_arithmetic(sky, tj.F420, progressive=True, restart=64,
+                                 blocks=blocks)
+    arith_seq = tj.encode_arithmetic(sky, tj.F420, blocks=blocks)
+    cmyk_src = tj.smooth_picture(512, 1024, seed=76, c=4)
+    cmyk = tj.encode_baseline(cmyk_src, [(1, 1)] * 4, adobe=True)
+    cmyk_arith = tj.encode_arithmetic(cmyk_src, [(1, 1)] * 4, adobe=True)
+    psd_src = ti.picture(SKY_H, SKY_W, 3, seed=77, runs=4)
+    psd = ti.encode_psd(np.ascontiguousarray(psd_src.transpose(2, 0, 1)),
+                        'rgb', 1)
+    log(f'phase 7e: encoded from seeded arrays in '
+        f'{time.perf_counter() - t:.1f} s (host)')
+    cases = {
+        'sky_arith.jpg': (arith, sky, lambda: decode_jpeg(arith_seq)),
+        'cmyk.jpg': (cmyk, cmyk_src, lambda: decode_jpeg(cmyk_arith)),
+        'sky.psd': (psd, psd_src, None),
+    }
+    for name, (data, src, other) in cases.items():
+        t = time.perf_counter()
+        px, mode = images.decode_image(data, name)
+        secs = time.perf_counter() - t
+        if other is None:
+            ok = px.shape == src.shape and np.array_equal(px, src)
+            how = 'equal to its array'
+        else:
+            raw = decode_jpeg(data)
+            if mode == 'CMYK':    # PIL's CMYK;I: the file's samples inverted
+                raw = 255 - raw
+            err = int(np.abs(raw.astype(np.int32) - src).max())
+            same = bool(np.array_equal(decode_jpeg(data), other()))
+            ok = same and err <= 24 and px.shape[-1] == 3
+            how = (f'equal to the other coder\'s decode: {same}, max |d| '
+                   f'from its array {err}')
+        log(f'phase 7e: {name} {src.shape[1]}x{src.shape[0]} {mode}, '
+            f'{len(data)} bytes: host decode {secs:.4f} s, {how}: {ok} | '
+            f'{card}')
+        if not ok:
+            failures.append(f'7e: {name} does not decode as it should')
+    sky_dir = os.path.join(tmp, 'arith-sky')
+    os.makedirs(sky_dir)
+    path = os.path.join(sky_dir, 'skydome.jpg')
+    with open(path, 'wb') as f:
+        f.write(arith)
+    cam = Camera.create([0.0, 4.0, -17.0], [0.0, -0.2, 1.0], 1.5, 12.0, 0.02,
+                        device='cuda')
+    pt = Pathtracer(builder.get_scene('outside', asset_dirs=[sky_dir]), WIDTH,
+                    HEIGHT, device='cuda')
+    sky_ok = torch.equal(pt.arrays.sky_img.cpu(),
+                         torch.from_numpy(load_image(path)))
+    kernels.reset_counts()
+    for clear in (True, False, False):
+        pt.render(cam, 5.0, should_clear=clear)
+    img = pt.image(blur=True).cpu()
+    torch.cuda.synchronize()
+    counts['7e arith sky'] = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    check_launches('7e outside, arithmetic sky', counts['7e arith sky'],
+                   dict(kernels.PLAIN_ON_CUDA), ('traverse', 'blur'), failures)
+    e, nan, neg = pt.energy()
+    differs = float((img - grey_img).abs().max())
+    log(f'phase 7e: outside {WIDTH}x{HEIGHT} with the {SKY_W}x{SKY_H} '
+        f'arithmetic-coded progressive skydome.jpg: sky_img equals the '
+        f'decode: {sky_ok}; energy {e} (NaN {nan}, negative {neg}; grey sky '
+        f'{grey_energy[0]}); image max|d| against the grey sky {differs:.4f}')
+    if not sky_ok or not np.isfinite(e) or nan or e == grey_energy[0] or \
+            not differs > 0:
+        failures.append('7e: the arithmetic JPEG sky did not load or did not '
+                        'show')
+    del pt, img
 
 
 def run_cards(n: int, tmp: str, failures: list) -> dict:

@@ -4,22 +4,22 @@ formats of the reference (its ``stb_image``), read without an imaging
 package (the machine with the card has none).
 
 :func:`decode_image` identifies a file by its content, as PIL does: PNG,
-JPEG, BMP, GIF and PNM by their signatures, TGA (which has none) by a valid
-header when the file's name ends in ``.tga``. It returns the pixels that
-the JAX ``load_image`` makes of the file, as uint8 [H, W, C], with PIL's
-mode. The decoders return the pixels of PIL's mode (``"1"``, ``"L"``,
-``"LA"``, ``"P"`` through its palette, ``"RGB"``, ``"RGBA"``, and the 16 and
-32-bit greys ``"I;16"`` and ``"I"`` as their 8-bit saturation), and
-:data:`KEPT` with :func:`as_loaded` is the mode table of the JAX
-``load_image``: ``RGB``, ``RGBA`` and ``L`` are kept, every other mode goes
-through PIL's ``convert('RGB')``.
+JPEG, BMP, GIF, PNM and PSD by their signatures, TGA (which has none) by a
+valid header when the file's name ends in ``.tga``. It returns the pixels
+that the JAX ``load_image`` makes of the file, as uint8 [H, W, C], with
+PIL's mode. The decoders return the pixels of PIL's mode (``"1"``, ``"L"``,
+``"LA"``, ``"P"`` through its palette, ``"RGB"``, ``"RGBA"``, ``"CMYK"`` as
+PIL reads it, and the 16 and 32-bit greys ``"I;16"`` and ``"I"`` as their
+8-bit saturation), and :data:`KEPT` with :func:`as_loaded` is the mode
+table of the JAX ``load_image``: ``RGB``, ``RGBA`` and ``L`` are kept,
+every other mode goes through PIL's ``convert('RGB')``.
 
 Decoding runs in C++ (``scene/native/image_decoder.cpp``: PNG scanlines
-after the standard library's ``zlib`` has inflated them, TGA, BMP and GIF;
-JPEG through ``scene/jpeg.py``), compiled at first use (``$CXX``, else
-``g++``) into the git-ignored ``cuda_pathtracer_tpu_torch/_build/``, as
-the JPEG decoder is. A missing or failing compiler raises. PNM is parsed
-with numpy.
+after the standard library's ``zlib`` has inflated them, TGA, BMP, GIF and
+PSD's PackBits rows; JPEG through ``scene/jpeg.py``), compiled at first use
+(``$CXX``, else ``g++``) into the git-ignored
+``cuda_pathtracer_tpu_torch/_build/``, as the JPEG decoder is. A missing or
+failing compiler raises. PNM and PSD headers are parsed with numpy.
 
 What raises, so that the skydome search (which skips a file on
 FileNotFoundError and ValueError, as in the JAX package) substitutes
@@ -28,10 +28,10 @@ FileNotFoundError only for a missing file (``open`` raises it); OSError
 for a malformed file or one no decoder recognises; ValueError where PIL
 raises ValueError (a truncated IHDR, sRGB or pHYs chunk, a BMP RLE stream
 that ends before the image, TGA image types whose colour map PIL refuses,
-PNM header errors); NotImplementedError, naming the format, for formats
-PIL reads that are not texture formats of the reference (TIFF, WebP, PSD
-and the others of :data:`PIL_ONLY`) and for the JPEG features
-``scene/jpeg.py`` refuses.
+PNM header errors, a truncated one-channel raw PSD); NotImplementedError,
+naming the format, for formats PIL reads that are not texture formats of
+the reference (TIFF, WebP and the others of :data:`PIL_ONLY`) and for PSD
+composites in Lab colour, which PIL converts through LittleCMS.
 """
 from __future__ import annotations
 
@@ -60,6 +60,10 @@ PNG_MODES = {(1, 0): '1', (2, 0): 'L', (4, 0): 'L', (8, 0): 'L',
              (16, 4): 'RGBA', (8, 6): 'RGBA', (16, 6): 'RGBA'}
 CHANNELS = {'1': 1, 'L': 1, 'I;16': 1, 'I': 1, 'LA': 2, 'P': 3, 'RGB': 3,
             'RGBA': 4}
+# PIL's (mode, channels it reads) of a PSD's (colour mode, bits per sample)
+PSD_MODES = {(0, 1): ('1', 1), (0, 8): ('L', 1), (1, 8): ('L', 1),
+             (2, 8): ('P', 1), (3, 8): ('RGB', 3), (4, 8): ('CMYK', 4),
+             (7, 8): ('L', 1), (8, 8): ('L', 1), (9, 8): ('LAB', 3)}
 # the modes the JAX load_image keeps; it converts the others to RGB
 KEPT = ('RGB', 'RGBA', 'L')
 # shortest PNG chunks PIL accepts before the image data, and what it raises
@@ -72,7 +76,6 @@ PIL_ONLY = [
     ('TIFF', lambda d: d[:4] in (b'II*\x00', b'MM\x00*', b'II+\x00',
                                  b'MM\x00+')),
     ('WebP', lambda d: d[:4] == b'RIFF' and d[8:12] == b'WEBP'),
-    ('PSD', lambda d: d[:4] == b'8BPS'),
     ('ICO', lambda d: d[:4] == b'\x00\x00\x01\x00'),
     ('CUR', lambda d: d[:4] == b'\x00\x00\x02\x00'),
     ('DIB', lambda d: len(d) >= 4 and struct.unpack('<I', d[:4])[0]
@@ -132,6 +135,9 @@ def _load():
             ip, ctypes.c_char_p, ctypes.c_char_p, i]
         lib.cpt_image_free.restype = None
         lib.cpt_image_free.argtypes = [u8p]
+        lib.cpt_packbits.restype = ctypes.c_int64
+        lib.cpt_packbits.argtypes = [ctypes.c_char_p, ctypes.c_int64, u8p,
+                                     ctypes.c_int64, ctypes.c_int64]
         _LIB = lib
     return _LIB
 
@@ -434,23 +440,157 @@ def _saturate(vals) -> np.ndarray:
     return np.minimum(np.asarray(vals), 255).astype(np.uint8)
 
 
+# ---- PSD ------------------------------------------------------------------
+
+
+class _Reader:
+    """A file position over bytes that reads short at the end, as a file
+    does; the integers of a short read raise OSError (PIL's struct.error
+    and IndexError at open)."""
+
+    def __init__(self, data: bytes):
+        self.data, self.pos = data, 0
+
+    def read(self, n: int) -> bytes:
+        out = self.data[self.pos:self.pos + max(n, 0)]
+        self.pos += len(out)
+        return out
+
+    def uint(self, n: int) -> int:
+        b = self.read(n)
+        if len(b) < n:
+            raise OSError('cannot identify image file (PSD: short read)')
+        return int.from_bytes(b, 'big')
+
+
+def read_psd(data: bytes, name: str = ''):
+    """(pixels, PIL's mode) of a PSD's composite image as PsdImagePlugin
+    reads it: bitmap as ``1``, grey, multichannel and duotone as ``L``
+    (one channel), indexed as ``P`` through the colour-mode data when it
+    is a 768-byte palette (else black), RGB (``RGBA`` with exactly four
+    channels) and CMYK (inverted, PIL's raw mode ``CMYK;I``); raw or
+    PackBits rows (C++), each channel from the offset PIL computes, which
+    reads the row-length table of only the channels the mode takes. Lab
+    composites raise NotImplementedError: PIL converts them to RGB through
+    LittleCMS. 16 and 32-bit files, other versions and unknown modes raise
+    OSError, as in PIL."""
+    f = _Reader(data)
+    head = f.read(26)
+    if len(head) < 26 or head[:4] != b'8BPS' or head[4:6] != b'\x00\x01':
+        raise OSError('cannot identify image file (not a PSD file)')
+    psd_channels, h, w, bits, cmode = struct.unpack('>HIIHH', head[12:26])
+    if (cmode, bits) not in PSD_MODES:
+        raise OSError(f'cannot identify image file (PSD mode {cmode} at '
+                      f'{bits} bits)')
+    mode, channels = PSD_MODES[(cmode, bits)]
+    if channels > psd_channels:
+        raise OSError('not enough channels')
+    if mode == 'RGB' and psd_channels == 4:
+        mode, channels = 'RGBA', 4
+    size = f.uint(4)
+    palette = None
+    if size:
+        colour = f.read(size)
+        if mode == 'P' and size == len(colour) == 768:
+            palette = np.frombuffer(colour, np.uint8).reshape(3, 256).T
+    size = f.uint(4)
+    if size:   # image resources, read as PIL reads them
+        end = f.pos + size
+        while f.pos < end:
+            f.read(4)
+            f.uint(2)
+            n = f.uint(1)
+            if not len(f.read(n)) & 1:
+                f.read(1)
+            if len(f.read(f.uint(4))) & 1:
+                f.read(1)
+    size = f.uint(4)
+    if size:   # the layer and mask section
+        end = f.pos + size
+        f.uint(4)
+        f.pos = end
+    compression = f.uint(2)
+    if mode == 'LAB':
+        raise NotImplementedError(f'{name or "image"}: a PSD in Lab colour '
+                                  f'is not read by the port (PIL converts '
+                                  f'it through LittleCMS)')
+    if compression not in (0, 1):
+        raise OSError('cannot load this image (PSD compression '
+                      f'{compression})')
+    _check_size(w, h)
+    row = (w + 7) // 8 if bits == 1 else w
+    planes = np.zeros((channels, h, row), np.uint8)
+    if compression == 0:
+        offset = f.pos
+        for c in range(channels):
+            chunk = data[offset:offset + row * h]
+            if len(chunk) < row * h:
+                # PIL maps a one-channel L or P image of a file opened by
+                # name straight from the file: a short one raises
+                # ValueError unless the data starts past its end
+                mapped = channels == 1 and mode in ('L', 'P') and \
+                    offset <= len(data)
+                raise (ValueError if mapped else OSError)(
+                    'image file is truncated')
+            planes[c] = np.frombuffer(chunk, np.uint8).reshape(h, row)
+            offset += w * h
+    else:
+        counts = f.read(channels * h * 2)
+        if len(counts) < channels * h * 2:
+            raise OSError('cannot identify image file (PSD: short read)')
+        lengths = np.frombuffer(counts, '>u2').reshape(channels, h)
+        lib = _load()
+        offset = f.pos
+        for c in range(channels):
+            rest = data[offset:]
+            if lib.cpt_packbits(rest, len(rest), planes[c].ctypes.data_as(
+                    ctypes.POINTER(ctypes.c_uint8)), row, h) < 0:
+                raise OSError('image file is truncated')
+            offset += int(lengths[c].sum())
+    if mode == '1':
+        bits_ = np.unpackbits(planes[0], axis=1)[:, :w]
+        return (bits_ * 255).astype(np.uint8)[..., None], mode
+    if mode == 'P':
+        table = palette if palette is not None else np.zeros((256, 3),
+                                                             np.uint8)
+        return table[planes[0]], mode
+    px = np.ascontiguousarray(planes.transpose(1, 2, 0))
+    if mode == 'CMYK':
+        px = 255 - px
+    return px, mode
+
+
 # ---- identification and the mode table ------------------------------------
+
+
+def cmyk_to_rgb(px: np.ndarray) -> np.ndarray:
+    """PIL's ``convert('RGB')`` of CMYK uint8 [..., 4] (Convert.c
+    cmyk2rgb): each channel (255 - K) - C (255 - K) / 255, the product
+    rounded as PIL's MULDIV255 rounds it."""
+    c = px[..., :3].astype(np.int32)
+    nk = 255 - px[..., 3:4].astype(np.int32)
+    t = c * nk + 128
+    return np.clip(nk - (((t >> 8) + t) >> 8), 0, 255).astype(np.uint8)
 
 
 def as_loaded(px: np.ndarray, mode: str) -> np.ndarray:
     """The JAX ``load_image``'s uint8 pixels of a decoder's output: the
     modes of :data:`KEPT` as they are; PIL's ``convert('RGB')`` of the
-    others, which repeats the grey of ``1``, ``LA``, ``I;16`` and ``I`` and
-    keeps ``P``'s palette colours (the decoders return those already)."""
+    others, which repeats the grey of ``1``, ``LA``, ``I;16`` and ``I``,
+    keeps ``P``'s palette colours (the decoders return those already) and
+    takes CMYK through :func:`cmyk_to_rgb`."""
     if mode in KEPT or mode == 'P':
         return px
+    if mode == 'CMYK':
+        return cmyk_to_rgb(px)
     return np.repeat(px[..., :1], 3, axis=-1)
 
 
 def identify(data: bytes, name: str = '') -> str:
     """PIL's format of a file's bytes among those the port reads ('PNG',
-    'JPEG', 'BMP', 'GIF', 'PNM', 'TGA'). Raises NotImplementedError for a
-    format of :data:`PIL_ONLY` and OSError for bytes no format claims."""
+    'JPEG', 'BMP', 'GIF', 'PNM', 'TGA', 'PSD'). Raises NotImplementedError
+    for a format of :data:`PIL_ONLY` and OSError for bytes no format
+    claims."""
     if data[:8] == PNG_SIGNATURE:
         return 'PNG'
     if data[:3] == b'\xff\xd8\xff':
@@ -459,6 +599,8 @@ def identify(data: bytes, name: str = '') -> str:
         return 'BMP'
     if data[:6] in (b'GIF87a', b'GIF89a'):
         return 'GIF'
+    if data[:4] == b'8BPS':
+        return 'PSD'
     if len(data) >= 2 and data[:1] == b'P' and data[1] in b'0123456fy':
         return 'PNM'
     if name.lower().endswith('.tga') and len(data) >= 2 and data[1] in (0, 1):
@@ -477,12 +619,15 @@ _READERS = {'PNG': read_png, 'BMP': read_bmp, 'GIF': read_gif,
 def decode_image(data: bytes, name: str = ''):
     """(pixels, mode) of an image file's bytes: uint8 [H, W, C], top row
     first, equal to the JAX ``load_image``'s array times 255 (C = 1 for
-    ``L``, 3 for RGB and every converted mode, 4 for ``RGBA``), and PIL's
-    mode for the file. ``name`` (the file's path) lets a ``.tga`` be read
-    and names the file in errors."""
+    ``L``, 3 for RGB and every converted mode, ``CMYK`` included, 4 for
+    ``RGBA``), and PIL's mode for the file. ``name`` (the file's path) lets
+    a ``.tga`` be read and names the file in errors."""
     fmt = identify(data, name)
     if fmt == 'JPEG':
         px = decode_jpeg(data)
-        return px, 'L' if px.shape[-1] == 1 else 'RGB'
-    px, mode = _READERS[fmt](data)
+        mode = {1: 'L', 3: 'RGB', 4: 'CMYK'}[px.shape[-1]]
+    elif fmt == 'PSD':
+        px, mode = read_psd(data, name)
+    else:
+        px, mode = _READERS[fmt](data)
     return as_loaded(px, mode), mode

@@ -15,15 +15,19 @@ compiler, the flags and the source, the compiler's output beside it as
 ``.log``). A missing or failing compiler raises: a sky never falls
 back to grey because the decoder could not be built.
 
-Supported: baseline, extended and progressive Huffman JPEG, 8-bit samples,
-grey (returned as ``[H, W, 1]``, PIL's mode ``L``) or three components
-(YCbCr, or RGB by its Adobe marker or component ids) with sampling factors
-of 1 or 2 per axis, restart intervals, any APPn and COM markers. Refused
-with NotImplementedError naming the feature: arithmetic coding, 12-bit
-samples, lossless and hierarchical JPEG, four components (CMYK, YCCK),
-other sampling factors, heights given by a DNL marker, and progressive
-files whose first coefficients are not all refined (libjpeg smooths
-those blocks).
+Supported: baseline, extended and progressive JPEG, Huffman or arithmetic
+coded (with DAC conditioning), and 8-bit lossless JPEG (SOF3, predictors
+1-7, point transforms); 8-bit samples; grey (returned as ``[H, W, 1]``,
+PIL's mode ``L``), three components (YCbCr, or RGB by its Adobe marker or
+component ids) or four (CMYK, or YCCK by its Adobe marker; returned as
+``[H, W, 4]`` inverted, as PIL reads them in its mode ``CMYK``); sampling
+factors of 1 to 4 per axis in integral ratios; restart intervals; any APPn
+and COM markers. A progressive file whose first coefficients are not all
+exact is block-smoothed as libjpeg smooths it. What PIL refuses raises
+OSError, as in PIL: other precisions (12-bit), hierarchical and
+arithmetic lossless frames, heights given by a DNL marker, two or more
+than four components, fractional sampling ratios, a file that ends before
+its EOI marker.
 """
 from __future__ import annotations
 
@@ -68,9 +72,8 @@ def _load():
 
 def decode_jpeg(data: bytes) -> np.ndarray:
     """The pixels of a JPEG file's bytes: uint8 [H, W, C], top row first,
-    C = 1 (grey) or 3 (RGB), equal to PIL's decode. Raises
-    NotImplementedError for a feature the decoder refuses (see the module
-    docstring) and OSError for a malformed file (as PIL does)."""
+    C = 1 (grey), 3 (RGB) or 4 (CMYK, inverted), equal to PIL's decode.
+    Raises OSError for a file PIL refuses (see the module docstring)."""
     lib = _load()
     px = ctypes.POINTER(ctypes.c_uint8)()
     w, h, c = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
@@ -78,8 +81,6 @@ def decode_jpeg(data: bytes) -> np.ndarray:
     rc = lib.cpt_jpeg_decode(bytes(data), len(data), ctypes.byref(px),
                              ctypes.byref(w), ctypes.byref(h),
                              ctypes.byref(c), err, len(err))
-    if rc == 1:
-        raise NotImplementedError(f'JPEG: {err.value.decode()}')
     if rc:
         raise OSError(f'JPEG: {err.value.decode()}')
     try:

@@ -1,4 +1,5 @@
-// Host decoders of PNG scanlines (after inflate), TGA, BMP and GIF, for
+// Host decoders of PNG scanlines (after inflate), TGA, BMP, GIF and PSD's
+// PackBits rows, for
 // textures and skies (scene/images.py binds them with ctypes). Their target
 // is the pixels PIL returns for the same file, which is how the JAX package
 // reads images: the same modes, the same bit expansions (5 and 6-bit
@@ -23,6 +24,9 @@
 //   cpt_image_decode(format, data, n, &pixels, &w, &h, &c, mode, err,
 //                    err_len)   format 1 TGA, 2 BMP, 3 GIF; a malloc'ed
 //                    buffer that cpt_image_free releases
+//   cpt_packbits(data, n, out, row_bytes, rows) -> the bytes PIL's PackBits
+//                    decoder takes to fill rows x row_bytes of out, or -1
+//                    if data ends first
 #include <algorithm>
 #include <cstdint>
 #include <cstdio>
@@ -964,5 +968,35 @@ int cpt_image_decode(int format, const uint8_t* data, int64_t n,
 }
 
 void cpt_image_free(uint8_t* p) { std::free(p); }
+
+// PackbitsDecode.c: a run or literal fills the current row and drops what
+// does not fit; a packet that data holds only part of ends the stream.
+int64_t cpt_packbits(const uint8_t* d, int64_t n, uint8_t* out,
+                     int64_t row_bytes, int64_t rows) {
+  int64_t pos = 0, x = 0, y = 0;
+  if (rows <= 0 || row_bytes <= 0) return 0;
+  while (pos < n) {
+    int b = d[pos];
+    if (b == 0x80) {   // no operation
+      pos++;
+      continue;
+    }
+    uint8_t* row = out + y * row_bytes;
+    if (b & 0x80) {    // a run of 257 - b copies of the next byte
+      if (n - pos < 2) break;
+      for (int k = 257 - b; k > 0 && x < row_bytes; k--) row[x++] = d[pos + 1];
+      pos += 2;
+    } else {           // b + 1 literal bytes
+      if (n - pos < b + 2) break;
+      for (int k = 1; k < b + 2 && x < row_bytes; k++) row[x++] = d[pos + k];
+      pos += b + 2;
+    }
+    if (x >= row_bytes) {
+      x = 0;
+      if (++y >= rows) return pos;
+    }
+  }
+  return -1;
+}
 
 }  // extern "C"

@@ -62,12 +62,13 @@ def load_image(path: str) -> np.ndarray:
     """Decode an image to linear float32 [H, W, C], bottom row first, as the
     JAX package's PIL path does: Radiance ``.hdr`` by its extension, every
     other file through ``scene/images.py::decode_image``, which identifies
-    it by its content (PNG, JPEG, BMP, GIF, PNM, and TGA when it is named
-    ``.tga``) and applies PIL's mode table (C = 1 for grey, 4 for RGBA, 3
-    for the rest). A missing file raises FileNotFoundError; malformed files
-    and the formats and JPEG features the port does not read raise OSError,
-    ValueError or NotImplementedError as ``decode_image`` says, so the
-    skydome search never takes them for a missing file."""
+    it by its content (PNG, JPEG, BMP, GIF, PNM, PSD, and TGA when it is
+    named ``.tga``) and applies PIL's mode table (C = 1 for grey, 4 for
+    RGBA, 3 for the rest). A missing file raises FileNotFoundError;
+    malformed files, the files PIL refuses and the formats the port does
+    not read raise OSError, ValueError or NotImplementedError as
+    ``decode_image`` says, so the skydome search never takes them for a
+    missing file."""
     if path.lower().endswith('.hdr'):
         img = _read_hdr(path)
     else:

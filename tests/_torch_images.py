@@ -1,9 +1,11 @@
 """Image files for the port's decoder tests (``tests/test_torch_images.py``)
-and for ``chip_smoke.py``'s phase 7: encoders of PNG, TGA, BMP, GIF and PNM
-in numpy, for the layouts PIL does not write (Adam7, 2/4/16-bit grey,
-16-bit RGB(A) and grey + alpha, every filter type, the TGA image types and
-origins, BMP RLE, bit fields and header versions, GIF local palettes,
-offsets and code sizes, plain PNM and odd maxvals), and PIL for the rest.
+and for ``chip_smoke.py``'s phase 7: encoders of PNG, TGA, BMP, GIF, PNM
+and PSD in numpy, for the layouts PIL does not write (Adam7, 2/4/16-bit
+grey, 16-bit RGB(A) and grey + alpha, every filter type, the TGA image
+types and origins, BMP RLE, bit fields and header versions, GIF local
+palettes, offsets and code sizes, plain PNM and odd maxvals, PSD
+composites of every colour mode, raw and PackBits), and PIL for the
+rest.
 
 :func:`write_fixtures` writes the committed fixtures of ``tests/data/
 images`` and their ``digests.json``: for each file PIL's mode and the
@@ -436,6 +438,127 @@ def encode_pnm(samples: np.ndarray, kind: int, maxval: int = 255,
 # ---- the fixtures ----------------------------------------------------------
 
 
+# ---- PSD --------------------------------------------------------------------
+
+# Photoshop colour modes of the composite image PIL reads: name -> (mode
+# number, bits per sample)
+PSD_MODES = {'bitmap': (0, 1), 'grey': (1, 8), 'indexed': (2, 8),
+             'rgb': (3, 8), 'cmyk': (4, 8), 'multichannel': (7, 8),
+             'duotone': (8, 8), 'lab': (9, 8)}
+
+
+def packbits(plane: np.ndarray):
+    """PackBits of each row of uint8 ``plane`` [rows, width], in numpy:
+    runs of 3 or more equal bytes as (257 - n, byte) packets of up to 128
+    (a last piece of 1 as a literal), the bytes between them as literals of
+    up to 128. Returns (the packed rows, concatenated; each row's length)."""
+    rows, w = plane.shape
+    if rows == 0 or w == 0:
+        return b'', np.zeros(rows, np.int64)
+    flat = plane.reshape(-1).astype(np.int64)
+    col = np.tile(np.arange(w), rows)
+    new_run = np.ones(flat.size, bool)
+    new_run[1:] = (flat[1:] != flat[:-1]) | (col[1:] == 0)
+    starts = np.flatnonzero(new_run)
+    lengths = np.diff(np.append(starts, flat.size))
+    is_run = lengths >= 3
+    # literal segments: maximal stretches of short runs within a row
+    seg_start = is_run.copy()
+    seg_start[1:] |= is_run[:-1] | (col[starts[1:]] == 0)
+    seg_start[0] = True
+    seg_id = np.cumsum(seg_start) - 1
+    seg_pos = starts[seg_start]
+    seg_len = np.bincount(seg_id, lengths)
+    seg_run = is_run[seg_start]
+    # pieces of up to 128 bytes
+    pieces = -(-seg_len.astype(np.int64) // 128)
+    piece_seg = np.repeat(np.arange(len(seg_len)), pieces)
+    first_piece = np.cumsum(pieces) - pieces
+    k = np.arange(len(piece_seg)) - first_piece[piece_seg]
+    n = np.minimum(128, seg_len[piece_seg].astype(np.int64) - 128 * k)
+    src = seg_pos[piece_seg] + 128 * k
+    run = seg_run[piece_seg] & (n >= 2)
+    size = np.where(run, 2, n + 1)
+    at = np.cumsum(size) - size
+    out = np.zeros(int(size.sum()), np.uint8)
+    out[at] = np.where(run, 257 - n, n - 1)
+    out[at[run] + 1] = flat[src[run]]
+    lit = ~run
+    count = n[lit]
+    base = np.repeat(at[lit] + 1 - np.cumsum(count) + count, count)
+    idx = np.arange(int(count.sum()))
+    out[base + idx] = flat[np.repeat(src[lit] - np.cumsum(count) + count,
+                                     count) + idx]
+    row_of = src // w
+    return out.tobytes(), np.bincount(row_of, size, minlength=rows).astype(
+        np.int64)
+
+
+def encode_psd(planes: np.ndarray, mode: str, compression: int = 0,
+               width: int = None, colour_data: bytes = b'',
+               depth: int = None) -> bytes:
+    """A PSD of uint8 ``planes`` [channels, h, row bytes] (bitmap rows
+    packed 8 pixels to a byte, MSB first) in colour ``mode`` (a key of
+    :data:`PSD_MODES`): raw (``compression`` 0) or PackBits rows (1), with
+    ``colour_data`` (an indexed file's palette: 256 reds, greens, blues),
+    two image resources and an empty layer section, which readers of the
+    composite skip; ``depth`` overrides the mode's bits per sample in the
+    header."""
+    number, bits = PSD_MODES[mode]
+    ch, h, row = planes.shape
+    w = width if width is not None else (row * 8 if bits == 1 else row)
+    out = bytearray(b'8BPS' + struct.pack('>H', 1) + bytes(6))
+    out += struct.pack('>HIIHH', ch, h, w, depth or bits, number)
+    out += struct.pack('>I', len(colour_data)) + colour_data
+    # a resolution block and one with an odd-length name
+    res = (b'8BIM' + struct.pack('>H', 1005) + b'\x00\x00'
+           + struct.pack('>I', 16) + bytes(range(16))
+           + b'8BIM' + struct.pack('>H', 1000) + b'\x03abc'
+           + struct.pack('>I', 3) + b'xyz\x00')
+    out += struct.pack('>I', len(res)) + res
+    lay = bytes(8)
+    out += struct.pack('>I', len(lay)) + lay
+    out += struct.pack('>H', compression)
+    if compression == 0:
+        out += planes.tobytes()
+    else:
+        packed, lengths = packbits(planes.reshape(ch * h, row))
+        out += lengths.astype('>u2').tobytes() + packed
+    return bytes(out)
+
+
+def psd_fixtures(lab: bool = False) -> dict:
+    """{file name: bytes} of PSD composites in every mode PIL reads, raw
+    and PackBits; Lab ones (which the port refuses) only with ``lab``."""
+    pic = picture(13, 21, 4, seed=50, runs=6)
+    rs = np.random.RandomState(51)
+    palette = rs.randint(0, 256, (256, 3)).astype(np.uint8)
+    bits = np.packbits(picture(13, 21, 1, seed=52, runs=5)[..., 0] > 128,
+                       axis=1)
+    layouts = {
+        'bitmap': bits[None],
+        'grey': pic[None, ..., 0],
+        'indexed': (pic[None, ..., 1] % 64),
+        'rgb': pic[..., :3].transpose(2, 0, 1),
+        'rgba': pic.transpose(2, 0, 1),
+        'cmyk': pic.transpose(2, 0, 1),
+        'multichannel': pic[..., :2].transpose(2, 0, 1),
+        'duotone': pic[None, ..., 2],
+        'lab': pic[..., :3].transpose(2, 0, 1),
+    }
+    out = {}
+    for name, planes in layouts.items():
+        if name == 'lab' and not lab:
+            continue
+        mode = 'rgb' if name == 'rgba' else name
+        colour = palette.T.tobytes() if name == 'indexed' else b''
+        for comp in (0, 1):
+            out[f'psd_{name}_{("raw", "packbits")[comp]}.psd'] = encode_psd(
+                np.ascontiguousarray(planes), mode, comp, width=21,
+                colour_data=colour)
+    return out
+
+
 def _grey_palette(n):
     return np.stack([np.linspace(0, 255, n)] * 3, 1).astype(np.uint8)
 
@@ -692,7 +815,7 @@ def refused() -> dict:
 
 
 def fixtures() -> dict:
-    return {**hand_fixtures(), **pil_fixtures()}
+    return {**hand_fixtures(), **psd_fixtures(), **pil_fixtures()}
 
 
 def pil_load(data: bytes):

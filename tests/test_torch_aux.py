@@ -258,9 +258,10 @@ def test_png_decode_every_filter_type():
 
 def test_jpeg_sky_is_refused_not_replaced(tmp_path):
     """A ``skydome.jpg`` on the asset path is decoded as the JAX package
-    decodes it (with PIL); one that uses a feature the port's decoder
-    refuses (here arithmetic coding) stops ``to_device`` rather than
-    falling back to the grey sky that a missing file gets."""
+    decodes it (with PIL), an arithmetic-coded one included; one that PIL
+    refuses too (here a hierarchical frame) stops ``to_device`` with
+    OSError, as in the JAX package, rather than falling back to the grey
+    sky that a missing file gets."""
     import _torch_jpeg
     from _torch_room import build_room
     from cuda_pathtracer_tpu.scene.textures import load_image as jload
@@ -276,9 +277,14 @@ def test_jpeg_sky_is_refused_not_replaced(tmp_path):
     np.testing.assert_array_equal(s.to_device('cpu').sky_img.numpy(),
                                   jload(str(path)))
     path.write_bytes(_torch_jpeg.refused()['arithmetic'])
-    with pytest.raises(NotImplementedError, match='arithmetic'):
+    np.testing.assert_array_equal(s.to_device('cpu').sky_img.numpy(),
+                                  jload(str(path)))
+    path.write_bytes(_torch_jpeg.refused()['hierarchical'])
+    with pytest.raises(OSError, match='hierarchical'):
         tload(str(path))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(OSError):
+        jload(str(path))
+    with pytest.raises(OSError):
         s.to_device('cpu')
     s.asset_dirs = [str(tmp_path / 'missing')]
     sky = s.to_device('cpu').sky_img

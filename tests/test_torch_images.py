@@ -7,11 +7,14 @@ every filter, palettes with and without tRNS; TGA types 1/2/3/9/10/11 at
 1/8/16/24/32 bits, both origins, mirrored, colour maps; BMP 1/4/8-bit
 palettes, RLE4, RLE8, 16/24/32-bit, bit fields, core and V4/V5 headers,
 top-down; GIF global and local palettes, interlaced, offset frames, clear
-codes; PNM P1-P6 and odd maxvals; and files PIL writes) loads in the port
-bit for bit as in the JAX package, and as ``digests.json`` says. A seeded
-sweep over PNG colour type x bit depth x interlace x filter does too. Files
-PIL refuses raise in the port with the same kind of error; formats only
-PIL reads raise NotImplementedError naming them; garbage raises OSError;
+codes; PNM P1-P6 and odd maxvals; PSD composites of every colour mode PIL
+reads, raw and PackBits; and files PIL writes) loads in the port bit for
+bit as in the JAX package, and as ``digests.json`` says. Seeded sweeps
+over PNG colour type x bit depth x interlace x filter and over PSD mode x
+compression x channel count do too. Files PIL refuses raise in the port
+with the same kind of error; formats only PIL reads (and Lab PSDs, which
+PIL converts through LittleCMS) raise NotImplementedError naming them;
+garbage raises OSError;
 each fixture cut short or with a byte changed loads alike in both packages
 or fails with the same kind of error (ValueError, which the skydome search
 skips, or another).
@@ -64,7 +67,7 @@ def test_fixtures_are_listed():
     names = set(ti.fixtures())
     assert names == set(DIGESTS) == set(os.listdir(DATA)) - {'digests.json'}
     formats = {n.split('_')[0] for n in names}
-    assert formats == {'png', 'tga', 'bmp', 'gif', 'pnm', 'pil'}
+    assert formats == {'png', 'tga', 'bmp', 'gif', 'pnm', 'psd', 'pil'}
 
 
 @pytest.mark.parametrize('name', sorted(DIGESTS))
@@ -134,7 +137,7 @@ def _outcome(load, path):
         return 'raise', None
 
 
-@pytest.mark.parametrize('prefix', ['png', 'tga', 'bmp', 'gif', 'pnm'])
+@pytest.mark.parametrize('prefix', ['png', 'tga', 'bmp', 'gif', 'pnm', 'psd'])
 def test_mutated_fixtures_load_as_in_jax(prefix, tmp_path):
     """Each fixture cut short, with a header byte changed and with a byte
     changed anywhere (seeded): the same array in both packages, or the same
@@ -161,8 +164,6 @@ def test_mutated_fixtures_load_as_in_jax(prefix, tmp_path):
 
 def _pil_bytes(fmt):
     from PIL import Image, features
-    if fmt == 'PSD':
-        return b'8BPS\x00\x01' + bytes(40)
     if fmt == 'WebP' and not features.check('webp'):
         return b'RIFF\x24\x00\x00\x00WEBPVP8L' + bytes(32)
     buf = io.BytesIO()
@@ -170,12 +171,100 @@ def _pil_bytes(fmt):
     return buf.getvalue()
 
 
-@pytest.mark.parametrize('fmt', ['TIFF', 'WebP', 'PSD'])
+@pytest.mark.parametrize('fmt', ['TIFF', 'WebP', 'PCX'])
 def test_pil_only_formats_are_named(fmt, tmp_path):
     path = tmp_path / 'sky.png'
     path.write_bytes(_pil_bytes(fmt))
     with pytest.raises(NotImplementedError, match=fmt):
         tload(str(path))
+
+
+PSD_LAYOUTS = [(mode, comp, extra) for mode in sorted(ti.PSD_MODES)
+               if mode != 'lab' for comp in (0, 1) for extra in (0, 1)]
+
+
+@pytest.mark.parametrize('mode,compression,extra', PSD_LAYOUTS, ids=[
+    f'{m}-{("raw", "packbits")[c]}{"-extra" if e else ""}'
+    for m, c, e in PSD_LAYOUTS])
+def test_psd_layouts_decode_as_pil(mode, compression, extra, tmp_path):
+    """Random planes at sizes down to 1x1, with the channels the mode needs
+    or one more (PIL reads an RGB file of four as RGBA and skips a fifth;
+    with PackBits it takes the row lengths of only the channels it reads,
+    which shifts where the next channel starts), and indexed files with and
+    without a palette."""
+    rs = np.random.RandomState(len(mode) * 10 + compression * 2 + extra)
+    need = {'bitmap': 1, 'grey': 1, 'indexed': 1, 'rgb': 3, 'cmyk': 4,
+            'multichannel': 2, 'duotone': 1}[mode]
+    for h, w in ((1, 1), (3, 9), (11, 17)):
+        row = (w + 7) // 8 if mode == 'bitmap' else w
+        planes = rs.randint(0, 256, (need + extra, h, row)).astype(np.uint8)
+        if rs.randint(2):    # runs, so PackBits makes both kinds of packet
+            planes[..., 1::2] = planes[..., :-1:2][..., :planes[..., 1::2]
+                                                   .shape[-1]]
+        colour = rs.randint(0, 256, 768 if extra else 300).astype(
+            np.uint8).tobytes() if mode == 'indexed' else b''
+        data = ti.encode_psd(planes, mode, compression, width=w,
+                             colour_data=colour)
+        path = tmp_path / f'{mode}.psd'
+        path.write_bytes(data)
+        (tk, t), (jk, j) = _outcome(tload, str(path)), \
+            _outcome(jload, str(path))
+        assert tk == jk, (h, w)
+        if tk != 'ok':     # a shifted channel runs past the end in both
+            continue
+        np.testing.assert_array_equal(t, j)
+        got, got_mode = images.decode_image(data, str(path))
+        want_mode, want = ti.pil_load(data)
+        assert got_mode == want_mode
+        np.testing.assert_array_equal(got, want)
+
+
+def test_psd_files_pil_refuses_raise_alike(tmp_path):
+    """16 and 32-bit samples, another version, too few channels, ZIP
+    compression and truncated data: the same kind of error in both
+    packages (a truncated one-channel raw file raises ValueError, as PIL's
+    memory map of a file opened by name does)."""
+    pic = ti.picture(5, 7, 3, seed=1).transpose(2, 0, 1).copy()
+    raw = ti.encode_psd(pic, 'rgb', 0)
+    zipped = bytearray(raw)
+    zipped[len(raw) - pic.size - 2:len(raw) - pic.size] = b'\x00\x02'
+    grey = ti.encode_psd(pic[:1].copy(), 'grey', 0)
+    cases = {
+        '16-bit': ti.encode_psd(np.repeat(pic, 2, axis=2), 'rgb', 0,
+                                width=7, depth=16),
+        '32-bit': ti.encode_psd(np.repeat(pic, 4, axis=2), 'rgb', 0,
+                                width=7, depth=32),
+        'version 2': raw[:4] + b'\x00\x02' + raw[6:],
+        'two channels of RGB': ti.encode_psd(pic[:2].copy(), 'rgb', 0),
+        'ZIP': bytes(zipped),
+        'truncated raw RGB': raw[:-9],
+        'truncated PackBits': ti.encode_psd(pic, 'rgb', 1)[:-3],
+        'truncated raw grey': grey[:-9],
+        'header only': raw[:40],
+    }
+    for case, data in cases.items():
+        path = tmp_path / 'sky.psd'
+        path.write_bytes(data)
+        (tk, _), (jk, _) = _outcome(tload, str(path)), \
+            _outcome(jload, str(path))
+        assert tk == jk != 'ok', case
+        with pytest.raises(Exception) as e:
+            tload(str(path))
+        assert not isinstance(e.value, NotImplementedError), case
+
+
+def test_lab_psd_is_named(tmp_path):
+    """A Lab composite: PIL converts it to RGB through LittleCMS, which the
+    port does not reproduce, so it raises NotImplementedError naming it
+    (ROADMAP C.10) instead of a wrong sky."""
+    for name, data in ti.psd_fixtures(lab=True).items():
+        if '_lab_' not in name:
+            continue
+        path = tmp_path / name
+        path.write_bytes(data)
+        assert jload(str(path)).shape == (13, 21, 3)
+        with pytest.raises(NotImplementedError, match='Lab'):
+            tload(str(path))
 
 
 def test_garbage_and_missing_files(tmp_path):

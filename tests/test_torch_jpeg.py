@@ -4,14 +4,20 @@ jpeg_decoder.cpp``) against PIL, which the JAX package reads images with.
 The committed fixtures of ``tests/data/jpeg`` (written by
 ``tests/_torch_jpeg.py``: baseline 4:4:4, 4:2:2 and 4:2:0, progressive,
 grey, restart markers, optimized tables, Adobe RGB, 1x1 and odd sizes, a
-256x128 sky, and baseline files PIL does not write: 4:4:0, chroma sampled
-finer than luma, RGB by component ids) decode bit for bit as PIL decodes
-them, and as their ``digests.json`` says; so do freshly written variants
-over quality. ``load_image`` gives the JAX package's arrays, a room at
-32x24 with ``skydome.jpg`` and a JPEG ``map_Kd`` renders in the port as in
-the JAX package (the tolerances of ``tests/test_torch_pathtracer.py``), the
-refused features raise NotImplementedError naming themselves, and a
-decoder that cannot be compiled raises instead of leaving a grey sky.
+256x128 sky, and files PIL does not write: 4:4:0, chroma sampled finer
+than luma, RGB by component ids, arithmetic coding sequential and
+progressive with restarts and DAC, CMYK and YCCK with and without the
+Adobe marker, sampling factors 3 and 4, lossless with every predictor,
+and progressive files cut after each scan, which libjpeg block-smooths)
+decode bit for bit as PIL decodes them, and as their ``digests.json``
+says; so do freshly written variants over quality, sampling layouts and
+cut points. The arithmetic encoder writes the Huffman encoder's
+coefficients (PIL decodes both alike). ``load_image`` gives the JAX
+package's arrays, rooms at 32x24 with a Huffman, a CMYK and an
+arithmetic ``skydome.jpg`` render in the port as in the JAX package (the
+tolerances of ``tests/test_torch_pathtracer.py``), files PIL refuses raise
+OSError as in PIL, and a decoder that cannot be compiled raises instead
+of leaving a grey sky.
 """
 import json
 import os
@@ -71,16 +77,24 @@ def test_variants_over_quality_decode_as_pil(layout, quality):
     np.testing.assert_array_equal(jpeg.decode_jpeg(data), tj.pil_decode(data))
 
 
-@pytest.mark.parametrize('factors', [[(2, 2), (1, 2), (2, 1)],
-                                     [(2, 1), (1, 2), (1, 1)]],
-                         ids=['mixed', 'h2v1-h1v2'])
+SAMPLING = [[(2, 2), (1, 2), (2, 1)], [(2, 1), (1, 2), (1, 1)],
+            [(3, 1), (1, 1), (1, 1)], [(1, 3), (1, 1), (1, 1)],
+            [(4, 1), (2, 1), (1, 1)], [(2, 4), (1, 1), (1, 1)],
+            [(1, 4), (1, 2), (1, 1)], [(3, 2), (1, 1), (3, 1)]]
+
+
+@pytest.mark.parametrize('factors', SAMPLING, ids=[
+    'mixed', 'h2v1-h1v2', 'h3v1', 'h1v3', 'h4v1-h2v1', 'h2v4', 'h1v4-h1v2',
+    'h3v2-h3v1'])
 def test_baseline_sampling_layouts_decode_as_pil(factors):
     data = tj.encode_baseline(tj.picture(26, 35, seed=7), factors)
     np.testing.assert_array_equal(jpeg.decode_jpeg(data), tj.pil_decode(data))
 
 
 @pytest.mark.parametrize('name', ['sky_256x128.jpg', 'grey.jpg',
-                                  'adobe_rgb.jpg'])
+                                  'adobe_rgb.jpg', 'cmyk_sky_128x64.jpg',
+                                  'arith_sky_128x64.jpg',
+                                  '../images/psd_rgb_packbits.psd'])
 def test_load_image_matches_jax(name):
     path = os.path.join(DATA, name)
     got, want = tload(path), jload(path)
@@ -88,20 +102,98 @@ def test_load_image_matches_jax(name):
     np.testing.assert_array_equal(got, want)
 
 
+def _pil_outcome(data):
+    """PIL's decode of ``data``, or None where PIL raises OSError."""
+    try:
+        return tj.pil_decode(data)
+    except OSError:
+        return None
+
+
 @pytest.mark.parametrize('feature', sorted(tj.refused()))
 def test_refused_features_raise(feature):
-    with pytest.raises(NotImplementedError) as e:
-        jpeg.decode_jpeg(tj.refused()[feature])
-    words = {'four-component': 'four-component', 'not all refined':
-             'not all refined', 'sampling': 'sampling factors',
-             'DNL': 'DNL'}.get(feature, feature)
-    assert words in str(e.value)
+    """Each feature the decoder once refused: decoded bit for bit as PIL
+    decodes it, or OSError where PIL raises OSError (never
+    NotImplementedError)."""
+    data = tj.refused()[feature]
+    want = _pil_outcome(data)
+    decodes = {'arithmetic', 'sampling', 'four-component', 'not all refined'}
+    assert (want is not None) == (feature in decodes)
+    if want is None:
+        with pytest.raises(OSError):
+            jpeg.decode_jpeg(data)
+    else:
+        np.testing.assert_array_equal(jpeg.decode_jpeg(data), want)
+
+
+@pytest.mark.parametrize('case', sorted(tj.pil_refuses()))
+def test_files_pil_refuses_raise_oserror(case):
+    data = tj.pil_refuses()[case]
+    with pytest.raises(OSError):
+        tj.pil_decode(data)
+    with pytest.raises(OSError):
+        jpeg.decode_jpeg(data)
+
+
+def test_default_tables_are_libjpegs():
+    """The encoders' tables (Annex K, scaled to quality 90) are the ones
+    PIL writes, and the arithmetic encoder writes the Huffman encoder's
+    coefficients: PIL decodes both files alike, sequential and
+    progressive, with restarts and DAC."""
+    quant, huff = tj._std_tables()
+    pq, ph = tj.pil_tables()
+    assert huff == ph and all(np.array_equal(quant[t], pq[t]) for t in pq)
+    img = tj.picture(37, 45, seed=5)
+    cm = tj.cmyk_picture(29, 31, 6)
+    for src, factors, kind in ((img, tj.F420, None), (img, tj.F444, None),
+                               (img, [(4, 1), (1, 1), (1, 2)], None),
+                               (cm, [(1, 1)] * 4, 'ycck')):
+        want = tj.pil_decode(tj.encode_baseline(src, factors, kind=kind))
+        for opts in (dict(), dict(progressive=True),
+                     dict(restart=2, dac=[(0, 0, 0x31), (1, 1, 2)]),
+                     dict(progressive=True, restart=3, dac=[(1, 0, 62)])):
+            data = tj.encode_arithmetic(src, factors, kind=kind, **opts)
+            np.testing.assert_array_equal(tj.pil_decode(data), want)
+            np.testing.assert_array_equal(jpeg.decode_jpeg(data), want)
+
+
+@pytest.mark.parametrize('grey', [False, True], ids=['colour', 'grey'])
+def test_cut_progressive_files_decode_as_pil(grey):
+    """Progressive files cut at seeded points inside their scans (then an
+    EOI marker): libjpeg reads zeros for the rest of the scan's segment and
+    smooths the rows after the cut with the status before that scan."""
+    rs = np.random.RandomState(17 + grey)
+    data = tj.save_pil(tj.picture(48, 72, seed=9), grey, quality=85,
+                       progressive=True)
+    for n in rs.randint(len(data) // 10, len(data) - 2, 12):
+        cut = data[:n] + b'\xff\xd9'
+        want = _pil_outcome(cut)
+        if want is None:
+            with pytest.raises(OSError):
+                jpeg.decode_jpeg(cut)
+        else:
+            np.testing.assert_array_equal(jpeg.decode_jpeg(cut), want)
 
 
 def test_malformed_file_raises_oserror():
     data = tj.save_pil(tj.picture(8, 8), False)
     with pytest.raises(OSError):
         jpeg.decode_jpeg(data[:40])
+
+
+@pytest.mark.parametrize('predictor', range(1, 8))
+def test_lossless_predictors_decode_as_pil(predictor):
+    """Lossless files of each predictor over point transforms, sampling
+    layouts (box-upsampled, as libjpeg does without fancy upsampling) and
+    restart intervals, and cut short inside their scan."""
+    img = tj.picture(21, 26, seed=predictor)
+    for factors, pt, rows in ((tj.F444, 0, 0), ([(2, 1), (1, 2), (1, 1)], 2,
+                                                 3), (tj.F420, 1, 2)):
+        data = tj.encode_lossless(img, factors, predictor, pt, kind='rgb',
+                                  restart_rows=rows)
+        for d in (data, data[:len(data) * 3 // 5] + b'\xff\xd9'):
+            np.testing.assert_array_equal(jpeg.decode_jpeg(d),
+                                          tj.pil_decode(d))
 
 
 def test_no_compiler_raises(tmp_path, monkeypatch):
@@ -174,7 +266,10 @@ def test_jpeg_sky_and_texture_load_as_in_jax(jpeg_renders):
 
 
 def test_jpeg_room_renders_as_in_jax(jpeg_renders):
-    jpt, tpt = jpeg_renders
+    _assert_renders_alike(*jpeg_renders)
+
+
+def _assert_renders_alike(jpt, tpt):
     got, want = tpt.accumulators_pixel_order()[0].numpy(), \
         np.asarray(jpt.accumulators_pixel_order()[0])
     np.testing.assert_array_equal(got[:, 3], want[:, 3])
@@ -183,3 +278,31 @@ def test_jpeg_room_renders_as_in_jax(jpeg_renders):
     assert close.mean() >= 0.99, close.mean()
     assert got[:, :3].std() > 0.05
     np.testing.assert_allclose(tpt.energy()[0], jpt.energy()[0], rtol=1e-3)
+
+
+@pytest.mark.parametrize('sky', ['cmyk_sky_128x64.jpg',
+                                 'arith_sky_128x64.jpg'],
+                         ids=['cmyk', 'arithmetic'])
+def test_sky_search_finds_new_jpegs_as_jax(sky, tmp_path):
+    """A CMYK and an arithmetic-coded ``skydome.jpg``, found by the sky
+    search of both packages: the same sky array, and the same 32x24
+    render within the tolerances above (the JAX package reads them with
+    PIL; the port once stopped the render with NotImplementedError)."""
+    with open(os.path.join(DATA, sky), 'rb') as f:
+        (tmp_path / 'skydome.jpg').write_bytes(f.read())
+    for src, dst in (('baseline_420.jpg', 'tex.jpg'),):
+        with open(os.path.join(DATA, src), 'rb') as f:
+            (tmp_path / dst).write_bytes(f.read())
+    (tmp_path / 'quad.obj').write_text(QUAD_OBJ)
+    (tmp_path / 'quad.mtl').write_text(QUAD_MTL)
+    jpt = JPathtracer(_jpeg_room(js, tmp_path), 32, 24)
+    tpt = TPathtracer(_jpeg_room(ts, tmp_path), 32, 24, device='cpu')
+    np.testing.assert_array_equal(tpt.arrays.sky_img.numpy(),
+                                  np.asarray(jpt.arrays.sky_img))
+    assert tpt.arrays.sky_img.shape == (64, 128, 3)
+    jcam, tcam = JCamera.create(**CAMERA), TCamera.create(**CAMERA,
+                                                          device='cpu')
+    for clear in (True, False, False, False):
+        jpt.render(jcam, should_clear=clear)
+        tpt.render(tcam, should_clear=clear)
+    _assert_renders_alike(jpt, tpt)

@@ -86,6 +86,9 @@ shutil.copy(os.path.join(HERE, 'data', 'jpeg', 'sky_256x128.jpg'),
             OUT + '/skydome.jpg')
 assert jpeg.decode_jpeg(open(OUT + '/skydome.jpg', 'rb').read()).shape == \
     (128, 256, 3)
+assert jpeg.decode_jpeg(open(os.path.join(HERE, 'data', 'jpeg',
+                                       'arith_sky_128x64.jpg'), 'rb').read()
+                       ).shape == (64, 128, 3)
 # one image fixture of each format to PIL's digests, and a palette-PNG sky
 import hashlib, json
 from cuda_pathtracer_tpu_torch.scene import images
@@ -93,7 +96,7 @@ images._BUILD_DIR = OUT + '/build'
 IMAGES = os.path.join(HERE, 'data', 'images')
 with open(os.path.join(IMAGES, 'digests.json')) as f:
     digests = json.load(f)['files']
-for fmt in ('png', 'tga', 'bmp', 'gif', 'pnm'):
+for fmt in ('png', 'tga', 'bmp', 'gif', 'pnm', 'psd'):
     name = sorted(n for n in digests if n.startswith(fmt + '_'))[0]
     with open(os.path.join(IMAGES, name), 'rb') as f:
         px, mode = images.decode_image(f.read(), name)
