@@ -1723,7 +1723,7 @@ def _poke(port: int, stop, seen: dict):
             seen['fetches'] = seen.get('fetches', 0) + 1
             if png:
                 seen['png'] = png
-                seen['done'] = time.perf_counter()
+                seen['done'] = time.time()
                 return
         except OSError:
             pass
@@ -1739,18 +1739,14 @@ def free_port() -> int:
 def run_loops(cli_main, tmp: str, failures: list) -> dict:
     """Phase 3b: ``--serve <a free port> --frames 30`` on outside at 640x480,
     in path mode and then ray mode, with a thread that sends the key ``w``
-    and fetches the frames. The loop's host time is split by stage with
-    ``utils/profiling.StageTimer`` (render issue, finish, display transform,
-    the image to the host, the PNG, the scene update). Returns {mode:
-    frames per second}."""
+    and fetches the frames. The loop's time is split by the program's spans
+    (``utils/profiling.record`` with ``fence``, so each span waits for the
+    device work it launched: ``serve.render``, ``serve.update``,
+    ``serve.finish``, ``film.display``, ``film.to_host``, ``serve.present``,
+    and the Whitted frame's own). Returns {mode: frames per second}."""
     import torch
-    from cuda_pathtracer_tpu_torch.models import film
-    from cuda_pathtracer_tpu_torch.models.pathtracer import Pathtracer
-    from cuda_pathtracer_tpu_torch.models.raytracer import Raytracer
     from cuda_pathtracer_tpu_torch.ops import kernels
-    from cuda_pathtracer_tpu_torch.scene.scene import Scene
-    from cuda_pathtracer_tpu_torch.utils import display
-    from cuda_pathtracer_tpu_torch.utils.profiling import StageTimer
+    from cuda_pathtracer_tpu_torch.utils import display, profiling
     fps = {}
     for mode in ('path', 'ray'):
         port = free_port()
@@ -1761,36 +1757,17 @@ def run_loops(cli_main, tmp: str, failures: list) -> dict:
                 str(LOOP_WIDTH), '--height', str(LOOP_HEIGHT), '--serve',
                 str(port), '--frames', str(LOOP_FRAMES), '--state', state,
                 '--device', 'cuda']
-        stop, seen, shown = threading.Event(), {}, []
+        stop, seen = threading.Event(), {}
         poker = threading.Thread(target=_poke, args=(port, stop, seen),
                                  daemon=True)
-        stages = StageTimer()
-        app_cls = Raytracer if mode == 'ray' else Pathtracer
-        timed = [(app_cls, 'render', 'render (host issue)'),
-                 (app_cls, 'finish', 'finish (device wait)'),
-                 (app_cls, 'image', 'image (display transform)'),
-                 (film, 'to_uint8', 'to_uint8 (to the host)'),
-                 (display.HttpDisplay, 'present', 'present (PNG encode)'),
-                 (Scene, 'update', 'scene.update')]
-
-        def stage(fn, name):
-            def wrapped(*a, **kw):
-                with stages.stage(name):
-                    out = fn(*a, **kw)
-                if name.startswith('present'):
-                    shown.append(time.perf_counter())
-                return out
-            return wrapped
         kernels.reset_counts()
         err = io.StringIO()
         t = time.perf_counter()
         poker.start()
         try:
             with contextlib.ExitStack() as es:
-                for owner, attr, name in timed:
-                    es.enter_context(patched(owner, attr,
-                                             stage(getattr(owner, attr), name)))
                 es.enter_context(contextlib.redirect_stderr(err))
+                stages = es.enter_context(profiling.record(fence=True))
                 rc = cli_main(args)
             torch.cuda.synchronize()
         finally:
@@ -1798,6 +1775,9 @@ def run_loops(cli_main, tmp: str, failures: list) -> dict:
             poker.join(timeout=10)
         wall = time.perf_counter() - t
         text = err.getvalue()
+        # when each frame had been handed to the viewer (time.time())
+        shown = [sp.end_ns / 1e9 for sp in stages
+                 if sp.name == 'serve.present']
         emas = re.findall(r'^running average fps: (\S+)$', text, re.M)
         rate = ((len(shown) - 1) / (shown[-1] - shown[0])
                 if len(shown) > 1 else 0.0)
@@ -1824,7 +1804,7 @@ def run_loops(cli_main, tmp: str, failures: list) -> dict:
         for line in text.splitlines():
             if line.startswith(('Total energy', 'energy audit')):
                 log('  ' + line)
-        for line in stages.report().splitlines():
+        for line in profiling.span_totals(stages).splitlines():
             log('  ' + line)
         if poker.is_alive():
             failures.append(f'serve {mode}: the fetching thread did not stop')

@@ -348,14 +348,15 @@ def _serve_loop(app, scene, camera, args, group=None):
     """The real-time loop of the reference main() (src/main.cpp:301-425) with
     the GLFW window replaced by the HTTP live viewer: render, present, poll
     keys, update camera/scene, decide shouldClear. Under ``--shard`` the
-    viewer is rank 0's."""
+    viewer is rank 0's. Spans (``utils/profiling.py``): ``serve.render``,
+    ``serve.update``, ``serve.finish`` and ``serve.present``."""
     from .core.camera import update_camera
     from .models import film
     from .scene import state as state_mod
     from .utils.display import HttpDisplay
     from .utils.focus import click_to_focus
     from .utils.keyboard import Keyboard, DEFAULT_KEYMAP
-    from .utils.profiling import FpsMeter
+    from .utils.profiling import FpsMeter, span
 
     ticks = _Ticks(group)
     say = _printer(ticks.lead)
@@ -371,7 +372,8 @@ def _serve_loop(app, scene, camera, args, group=None):
     try:
         while args.frames == 0 or tick < args.frames:
             tick += 1
-            app.render(camera, t, 0.0, should_clear=should_clear)
+            with span('serve.render'):
+                app.render(camera, t, 0.0, should_clear=should_clear)
             # the host-side scene update overlaps the asynchronous device
             # render (main.cpp:312-313)
             stop, keys, clicks = ticks.share(lambda: (
@@ -379,11 +381,15 @@ def _serve_loop(app, scene, camera, args, group=None):
             if stop:
                 break
             kb.set_down(keys)
-            scene.update(kb, t)
-            app.finish()
+            with span('serve.update'):
+                scene.update(kb, t)
+            with span('serve.finish'):
+                app.finish()
             img = app.image(blur=blur)
             if display is not None:
-                display.present(film.to_uint8(img))
+                frame = film.to_uint8(img)
+                with span('serve.present'):
+                    display.present(frame)
                 ema = fps.frame()
                 if ema is not None:
                     say(f'running average fps: {ema:.2f}')

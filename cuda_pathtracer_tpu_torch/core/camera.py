@@ -11,6 +11,7 @@ import torch
 from . import rng as _rng
 from . import vecmath as vm
 from ..constants import PI
+from ..utils.profiling import span
 
 
 class Camera(NamedTuple):
@@ -38,7 +39,8 @@ def basis(cam: Camera, width: int, height: int):
     """(lt, u, v) as Camera::recalculate (src/types.h:590-600)."""
     center = cam.eye + cam.d * cam.view_dir
     up = torch.zeros_like(cam.view_dir)
-    up[1] = 1.0
+    with span('sync.basis'):   # the 1.0's copy to a card waits for it
+        up[1] = 1.0
     u = vm.normalize(vm.cross(up, cam.view_dir))
     v = vm.normalize(vm.cross(cam.view_dir, u))
     ar = width / height

@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import span
+
 
 def dot(a, b):
     """Batched 3-vector dot product -> [...]."""
@@ -48,8 +50,11 @@ def div(x, d: float):
     device. PyTorch's CUDA kernels divide by a Python scalar as a multiply
     by its reciprocal, an ulp off the CPU's (and the JAX package's)
     quotient for many x when d is not a power of two; a 0-d f32 tensor on
-    x's device divides exactly. On the CPU the result is ``x / d``'s."""
-    return x / torch.tensor(float(d), dtype=torch.float32, device=x.device)
+    x's device divides exactly. On the CPU the result is ``x / d``'s. The
+    0-d tensor's copy to a card waits for the card (span ``sync.div``)."""
+    with span('sync.div'):
+        d = torch.tensor(float(d), dtype=torch.float32, device=x.device)
+    return x / d
 
 
 def reflect(d, n):

@@ -10,6 +10,7 @@ import torch
 
 from ..core import vecmath as vm
 from ..ops.blur import blur_luminance
+from ..utils.profiling import span
 
 
 def clear_accumulators(n_pixels: int, device):
@@ -71,5 +72,9 @@ def energy_audit(lum):
 
 def to_uint8(img):
     """A display image as host uint8 (the value times 255, clipped to
-    [0, 255] and truncated)."""
-    return torch.clamp(img * 255.0, 0, 255).to(torch.uint8).cpu().numpy()
+    [0, 255] and truncated). Spans: ``film.to_host`` around
+    ``sync.to_host``, the copy."""
+    with span('film.to_host'):
+        img = torch.clamp(img * 255.0, 0, 255).to(torch.uint8)
+        with span('sync.to_host'):
+            return img.cpu().numpy()

@@ -40,6 +40,7 @@ from ..core import camera as cam_mod
 from ..core import rng as _rng
 from ..ops.dispatch import trace
 from ..constants import MAX_CACHE_DEPTH, MAX_RAY_DEPTH
+from ..utils.profiling import span
 
 # tail narrowing (the JAX engine's defaults): after TAIL_START bounces the
 # pending lanes are compacted into L // TAIL_DIV lanes, after TAIL2_START
@@ -531,9 +532,11 @@ class Pathtracer:
         return self.lum, self.alb
 
     def image(self, blur: bool = False):
-        lum, alb = self.accumulators_pixel_order()
-        return film.display(lum, alb, float(self.sample_idx), self.width,
-                            self.height, blur=blur)
+        """The display image (span ``film.display``)."""
+        with span('film.display'):
+            lum, alb = self.accumulators_pixel_order()
+            return film.display(lum, alb, float(self.sample_idx), self.width,
+                                self.height, blur=blur)
 
     def energy(self):
         total, has_nan, has_neg = film.energy_audit(self.lum)

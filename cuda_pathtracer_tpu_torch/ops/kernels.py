@@ -28,6 +28,8 @@ import subprocess
 
 import torch
 
+from ..utils.profiling import span
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, 'csrc')
 BUILD_DIR = os.path.join(_PKG, '_build')
@@ -161,10 +163,12 @@ def load(so: str):
 
 
 def library():
-    """The loaded kernel library (built on first use)."""
+    """The loaded kernel library (built on first use; span
+    ``kernels.build``: the ``nvcc`` build or the library load)."""
     global _lib
     if _lib is None:
-        _lib = load(build())
+        with span('kernels.build', setup=True):
+            _lib = load(build())
     return _lib
 
 

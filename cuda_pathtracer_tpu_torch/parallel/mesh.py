@@ -35,6 +35,7 @@ import torch
 
 from ..models import film
 from ..models.pathtracer import Pathtracer, tile_unpermute
+from ..utils.profiling import span
 
 # a rank that does not come, or a collective that one rank never enters,
 # fails after this long instead of hanging every other rank
@@ -257,13 +258,14 @@ class ShardedPathtracer(Pathtracer):
 
     def image(self, blur: bool = False):
         """The display image of the requested frame on rank 0; None on the
-        other ranks."""
-        lum, alb = self.accumulators_pixel_order()
-        if self.rank:
-            return None
-        k = self.out_height * self.width
-        return film.display(lum[:k], alb[:k], float(self.sample_idx),
-                            self.width, self.out_height, blur=blur)
+        other ranks (span ``film.display``)."""
+        with span('film.display'):
+            lum, alb = self.accumulators_pixel_order()
+            if self.rank:
+                return None
+            k = self.out_height * self.width
+            return film.display(lum[:k], alb[:k], float(self.sample_idx),
+                                self.width, self.out_height, blur=blur)
 
     def energy(self):
         if self.height == self.out_height:

@@ -1,0 +1,21 @@
+"""sync_wait_ms (ms): host ms per Whitted frame inside the program's
+``sync.*`` spans, where the host waits for the card (the compaction's
+``nonzero``, copies to and from the card, ``finish``), over the spans of
+each ``whitted.frame``'s frame id in the traced window (the frame, its
+``finish``, display and copy to the host). Read from the program's span
+recorder (``cuda_pathtracer_tpu_torch/utils/profiling.py``); nothing when
+the program recorded no frame."""
+
+
+def read(rec):
+    try:
+        from cuda_pathtracer_tpu_torch.utils.profiling import spans
+    except ImportError:
+        return None
+    got = [s for s in spans() if s.end_ns is not None]
+    frames = {s.frame for s in got if s.name == 'whitted.frame'}
+    if not frames:
+        return None
+    ns = sum(s.end_ns - s.start_ns for s in got
+             if s.frame in frames and s.name.startswith('sync.'))
+    return ns / 1e6 / len(frames)

@@ -3,9 +3,10 @@
 camera and the same ``moved``), ``utils/keyboard.py`` (edge state),
 ``utils/focus.py::click_to_focus`` (the same focal length from one traced
 ray, v2 and v1, on a cube, the plane and the sky of ``outside``),
-``models/film.py::to_uint8``, ``utils/profiling.py`` (the stage timer and
-FPS EMA of ``tests/test_aux.py``, the kernel categories, a trace written to
-a directory) and ``utils/display.py`` (the HTTP viewer's round trip with a
+``models/film.py::to_uint8``, ``utils/profiling.py`` (the fenced span
+recorder that took the place of ``tests/test_aux.py``'s stage timer, its FPS
+EMA, the kernel categories, a trace written to a directory) and
+``utils/display.py`` (the HTTP viewer's round trip with a
 PNG the port encoded, and the headless display).
 """
 import io
@@ -123,10 +124,12 @@ def test_to_uint8_matches_jax():
 
 
 def test_stage_timer_and_fps():
-    st = profiling.StageTimer()
-    with st.stage('work', fence=[torch.ones(3)]):
-        sum(range(1000))
-    assert 'work' in st.report()
+    with profiling.record(fence=True) as got:
+        with profiling.span('work'):
+            sum(range(1000))
+    assert [s.name for s in got] == ['work'] and got[0].seconds >= 0
+    assert 'work' in profiling.span_totals(got)
+    assert profiling.span('work') is profiling.span('other')   # off again
     meter = profiling.FpsMeter(report_every=2)
     assert meter.frame() is None
     assert meter.frame() is not None
