@@ -3,7 +3,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --cards 4     # only --shard across 4 cards
 
-Builds the twelve hand-written CUDA kernels from ``cuda_pathtracer_tpu_torch/
+Builds the thirteen hand-written CUDA kernels from ``cuda_pathtracer_tpu_torch/
 csrc`` and drives the port's render paths once at full size (phases 1-3
 and 5-7), then the eight probe kernels' sweeps (phase 4, run last):
 
@@ -52,7 +52,11 @@ inputs (for the traversals, the node and leaf visits of the plain walks).
    and their device ms (profiler), rays traced and Mrays/s; on each of the
    three depth-7 frames the level-0 closest-hit and shadow waves (2,073,600
    lanes) are recorded and traced again on the kernel and on its plain walk
-   (t, prim_id, prim_type bit-identical, ``hold_level0``); v1 and v2 must
+   (t, prim_id, prim_type bit-identical, ``hold_level0``), and every level
+   of each is shaded again by the two ``whitted_shade`` kernels and by the
+   plain route on the same rays and hits, each lane its own pixel: shadow
+   rays, contributions, children and shadow-ray counts bit-equal, each
+   kernel timed with its bound by bytes (``hold_shading``); v1 and v2 must
    agree on 99.5% of the pixels, and so must a 64x48 depth-7 outside frame
    on the card and on the CPU. (b) ``--serve <a free port> --frames 30`` on
    outside at 640x480, in path mode and in ray mode, while a thread sends
@@ -174,6 +178,8 @@ KERNELS = {
              'cuda_pathtracer_tpu/ops/blur_pallas.py:40'),
     'traverse_packet': ('cuda_pathtracer_tpu_torch/csrc/traverse_packet.cu',
                         'cuda_pathtracer_tpu/ops/traverse_packet.py:180'),
+    'whitted_shade': ('cuda_pathtracer_tpu_torch/csrc/whitted_shade.cu',
+                      'none (models/raytracer.py::_shade_level)'),
     'probe_gather': ('cuda_pathtracer_tpu_torch/csrc/probe_gather.cu',
                      'tools/pallas_gather_probe1.py:16, '
                      'tools/pallas_gather_probe2.py:12, '
@@ -228,6 +234,17 @@ STATUE_CAMERA = ([0.0, 6.0, -5.0], [0.0, 0.0, 1.0], 1.5, 5.0, 0.0)
 # the cross, dot, reciprocal, u/v/t products and the 8 acceptance tests)
 SLAB_OPS = 16 * 25
 LEAF_OPS = 12 * 56
+# bytes a lane the Whitted shading must move through HBM
+# (csrc/whitted_shade.cu): each launch reads the ray and its closest hit
+# (37); shade_pre writes a shadow ray a light (29); shade_post reads the
+# weight and pixel (20) and a shadow hit a light (1), reads and writes the
+# frame's pixel (24) and writes the two children (90). The gathers of
+# triangle, instance and material rows are left out: sibenik's four
+# triangle arrays are 3.95 MB, served from the 50 MB L2 (with 24 bytes a
+# lane counted for them, sibenik's level-0 shade_pre ran above the memory
+# rate).
+SHADE_PRE_BYTES, SHADE_PRE_LIGHT_BYTES = 37, 29
+SHADE_POST_BYTES, SHADE_POST_LIGHT_BYTES = 37 + 20 + 24 + 90, 1
 
 
 def log(msg: str):
@@ -1606,13 +1623,133 @@ def hold_level0(rt, cam, label: str, failures: list):
                             f'with plain {diff}')
 
 
+def hold_shading(rt, cam, label: str, failures: list) -> dict:
+    """Renders one depth-7 frame of ``rt`` recording every level's rays and
+    weights, then shades each level again on the card through the two
+    ``whitted_shade`` kernels and through the plain route
+    (``raytracer._level_plain``) on the same rays, closest hits and shadow
+    hits, each lane its own pixel: the shadow rays handed to every any-hit
+    trace (origin, direction, t_max, active), each lane's contribution, the
+    children (origin, direction, weight, pixel, active) and the count of
+    shadow rays must be bit-equal. Each kernel is timed over 10 calls with
+    CUDA events behind the sleep pre-roll, and so is the plain route's
+    shading over 3 (its traces replayed from the record, so no traversal is
+    timed; its sky copy waits for the pre-roll, so its time holds the
+    host's issue after that). Returns the frame's sums: kernel ms, plain
+    ms, bytes (``SHADE_*_BYTES``) and the largest difference."""
+    import torch
+    from cuda_pathtracer_tpu_torch.models import raytracer as rt_mod
+    from cuda_pathtracer_tpu_torch.ops import whitted_shade as ws
+    levels = []
+    orig = rt_mod._shade_level_kernels
+
+    def spy(tables, scene, dyn, ro, rd, weight, *rest):
+        levels.append((ro.clone(), rd.clone(), weight.clone()))
+        return orig(tables, scene, dyn, ro, rd, weight, *rest)
+    with patched(rt_mod, '_shade_level_kernels', spy):
+        rt.render(cam, should_clear=False)
+    scene, dyn = rt.arrays, rt.dyn
+    tab = ws.tables(scene, dyn)
+    L = tab.n_lights
+    real_trace = rt_mod.trace
+    total = dict(ms=0.0, plain_ms=0.0, bytes=0.0, err=0.0)
+
+    def same(a, b):
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        return a.shape == b.shape and torch.equal(a, b)
+
+    def err(a, b):
+        return float((a - b).abs().max()) if a.numel() else 0.0
+    for depth, (ro, rd, w) in enumerate(levels):
+        n = ro.shape[0]
+        pixel = torch.arange(n, device=ro.device)
+        calls = []
+
+        def traced(*a, **kw):
+            hit = real_trace(*a, **kw)
+            calls.append((a[2], a[3], kw.get('t_max'), kw.get('active'), hit))
+            return hit
+        p_out = torch.zeros((n, 3), device=ro.device)
+        p_count = torch.zeros((), dtype=torch.int64, device=ro.device)
+        with patched(rt_mod, 'trace', traced):
+            p_children = rt_mod._level_plain(scene, dyn, ro, rd, w, pixel,
+                                             p_out, p_count)
+        lv = ws.level(ro, rd, calls[0][4])
+        sro, sfl, tmax, sact = ws.shade_pre(tab, lv)
+        occluded = (torch.stack([c[4].intersected for c in calls[1:]])
+                    if L else sact)
+        k_out = torch.zeros_like(p_out)
+        k_count = torch.zeros_like(p_count)
+        k_children = ws.shade_post(tab, lv, w, pixel, occluded, k_out,
+                                   k_count)
+        torch.cuda.synchronize()
+        diff = [f'light {li} shadow {f}' for li, c in enumerate(calls[1:])
+                for f, x, y in zip(('origin', 'direction', 't_max', 'active'),
+                                   c[:4], (sro[li], sfl[li], tmax[li],
+                                           sact[li])) if not same(x, y)]
+        diff += [f'child {f}' for f, x, y in zip(
+            ('origin', 'direction', 'weight', 'pixel', 'active'), p_children,
+            k_children) if not same(x, y)]
+        if not same(p_out, k_out):
+            diff.append('contribution')
+        if int(p_count) != int(k_count) or len(calls) != 1 + L:
+            diff.append(f'shadow rays {int(p_count)} vs {int(k_count)}, '
+                        f'{len(calls)} traces')
+        e = max([err(p_out, k_out)] + [err(x, y) for x, y in zip(
+            p_children[:3], k_children[:3])])
+
+        t_out, t_count = torch.zeros_like(p_out), torch.zeros_like(p_count)
+        pre_ms, _ = cuda_ms(lambda: ws.shade_pre(tab, lv), reps=10,
+                            preroll=True)
+        post_ms, _ = cuda_ms(lambda: ws.shade_post(
+            tab, lv, w, pixel, occluded, t_out, t_count), reps=10,
+            preroll=True)
+        replay = []
+
+        def replayed(*a, **kw):
+            return replay.pop(0)
+
+        def plain():
+            replay[:] = [c[4] for c in calls]
+            return rt_mod._level_plain(scene, dyn, ro, rd, w, pixel, t_out,
+                                       t_count)
+        with patched(rt_mod, 'trace', replayed):
+            plain_ms, _ = cuda_ms(plain, reps=3, preroll=True)
+        pre_b = n * (SHADE_PRE_BYTES + L * SHADE_PRE_LIGHT_BYTES)
+        post_b = n * (SHADE_POST_BYTES + L * SHADE_POST_LIGHT_BYTES)
+        log(f'  shading level {depth} of {label}: {n} lanes, {L} lights, '
+            f'{int(k_count)} shadow rays | shade_pre {pre_ms:.4f} ms (bound '
+            f'{bound(pre_b, 0)[0]:.4f}), shade_post {post_ms:.4f} ms (bound '
+            f'{bound(post_b, 0)[0]:.4f}), plain {plain_ms:.3f} ms; '
+            f'differ from plain: {diff or "nothing"}')
+        if diff:
+            failures.append(f'whitted {label} shading level {depth}: kernels '
+                            f'differ from the plain route: {diff}')
+        total['ms'] += pre_ms + post_ms
+        total['plain_ms'] += plain_ms
+        total['bytes'] += pre_b + post_b
+        total['err'] = max(total['err'], e)
+    if not levels:
+        failures.append(f'whitted {label}: no level shaded')
+        return total
+    b = bound(total['bytes'], 0)[0]
+    log(f'  shading of {label}, {len(levels)} levels: kernels '
+        f'{total["ms"]:.4f} ms, bound {b:.4f} ms (share {b / total["ms"]:.3f})'
+        f', plain {total["plain_ms"]:.3f} ms')
+    return total
+
+
 def run_whitted(cli_main, sibenik, tmp: str, failures: list) -> dict:
     """Phase 3a: the Whitted raytracer at 1920x1080. Sibenik (v2): a clearing
     frame (depth 2) and a converged one (depth 7). The CLI's ``--mode ray``
     on outside at t = 5 (one depth-2 frame after the refit) with
     ``PACKET_V1`` on and then off, then one depth-7 outside frame on each
-    route; v1 and v2 must agree, and so must a 64x48 depth-7 outside frame
-    on the card and on the CPU. Returns {route: traversal launches}."""
+    route; each depth-7 frame's levels are shaded again by the
+    ``whitted_shade`` kernels and by the plain route (``hold_shading``);
+    v1 and v2 must agree, and so must a 64x48 depth-7 outside frame on the
+    card and on the CPU. Returns ({route: launches}, sibenik's shading
+    totals from ``hold_shading``)."""
     import torch
     from cuda_pathtracer_tpu_torch.core.camera import Camera
     from cuda_pathtracer_tpu_torch.models import raytracer as rt_mod
@@ -1629,9 +1766,11 @@ def run_whitted(cli_main, sibenik, tmp: str, failures: list) -> dict:
         f = whitted_frame(rt, cam, clear, f'sibenik v2 depth '
                           f'{2 if clear else 7}', failures)
     counts['sibenik'] = dict(kernels.LAUNCHES)
-    if kernels.LAUNCHES['traverse'] <= 0 or kernels.LAUNCHES['traverse_packet']:
+    if kernels.LAUNCHES['traverse'] <= 0 or kernels.LAUNCHES[
+            'traverse_packet'] or kernels.LAUNCHES['whitted_shade'] <= 0:
         failures.append(f'whitted sibenik: launches {kernels.LAUNCHES}')
     hold_level0(rt, cam, 'sibenik v2 depth 7', failures)
+    shading = hold_shading(rt, cam, 'sibenik v2 depth 7', failures)
     del rt
 
     frames = {}
@@ -1661,7 +1800,8 @@ def run_whitted(cli_main, sibenik, tmp: str, failures: list) -> dict:
                 failures.append(f'cli --mode ray {tag}: rc={rc}')
                 continue
             rt = app.returned[0]
-            if got[routes[tag]] <= 0 or got[routes['v2' if v1 else 'v1']]:
+            if got[routes[tag]] <= 0 or got[routes['v2' if v1 else 'v1']] \
+                    or got['whitted_shade'] <= 0:
                 failures.append(f'cli --mode ray {tag}: launches {got}')
             if any(kernels.PLAIN_ON_CUDA.values()):
                 failures.append(f'cli --mode ray {tag}: plain versions on '
@@ -1678,6 +1818,7 @@ def run_whitted(cli_main, sibenik, tmp: str, failures: list) -> dict:
             counts[f'outside-{tag}'] = dict(kernels.LAUNCHES)
             frames[(tag, 7)] = f['frame']
             hold_level0(rt, out_cam, f'outside {tag} depth 7', failures)
+            hold_shading(rt, out_cam, f'outside {tag} depth 7', failures)
             del rt, app
         finally:
             dispatch_mod.PACKET_V1 = False
@@ -1705,7 +1846,7 @@ def run_whitted(cli_main, sibenik, tmp: str, failures: list) -> dict:
         f'agree')
     if share < 0.995:
         failures.append(f'whitted 64x48: card vs CPU only {share:.6f}')
-    return counts
+    return counts, shading
 
 
 def _poke(port: int, stop, seen: dict):
@@ -2322,7 +2463,13 @@ def main() -> int:
     # ---- phase 3: the Whitted raytracer, the real-time loops, checkpoints
     with tempfile.TemporaryDirectory() as tmp:
         t = time.perf_counter()
-        whitted = run_whitted(cli_main, scene, tmp, failures)
+        whitted, shading = run_whitted(cli_main, scene, tmp, failures)
+        launches['whitted_shade'] = whitted['sibenik']['whitted_shade']
+        results['whitted_shade'] = dict(
+            max_abs_err=shading['err'], ms=shading['ms'],
+            plain_ms=shading['plain_ms'], library_ms=None)
+        results['whitted_shade']['bound_ms'], \
+            results['whitted_shade']['bound_by'] = bound(shading['bytes'], 0)
         del scene
         torch.cuda.empty_cache()
         log(f'phase 3a (Whitted frames): {time.perf_counter() - t:.1f} s '

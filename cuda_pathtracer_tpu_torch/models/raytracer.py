@@ -17,8 +17,16 @@ weight fell to 1e-5 or below, or that was never spawned, adds exactly 0 to
 the frame, so it is dropped before the level is traced rather than traced as
 a masked lane. The lanes kept, and their order, are the JAX package's
 (``_compact``).
+
+A level is shaded by :func:`_shade_level`, the plain version, on the CPU,
+and on the card by two kernels around its traces
+(:func:`_shade_level_kernels`, ``ops/whitted_shade.py``), which give the
+plain version's children and shadow rays bit for bit; the frame's sums
+differ only by the order of the card's atomic adds.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -26,6 +34,7 @@ from . import film
 from .shading import _f3, _reflect_ray, _refract
 from ..core import camera as cam_mod
 from ..core import vecmath as vm
+from ..ops import kernels, whitted_shade
 from ..ops.dispatch import trace
 from ..ops.traverse import PRIM_PLANE, PRIM_SPHERE
 from ..constants import EPS
@@ -39,6 +48,7 @@ def _shade_level(scene, dyn, ro, rd, weight):
     src/raytracer.h:85-165). Returns (contribution f32[B, 3], shadow rays
     traced as an i64 0-d tensor, the refract and the reflect children, each
     (origin, direction, weight, active))."""
+    kernels.note_plain('whitted_shade', ro)
     dev = ro.device
     zero = torch.zeros((), dtype=torch.float32, device=dev)
 
@@ -160,6 +170,43 @@ def _shade_level(scene, dyn, ro, rd, weight):
     return contrib, shadow_rays, children
 
 
+def _level_plain(scene, dyn, ro, rd, weight, pixel, out, shadow):
+    """One level on the plain route: :func:`_shade_level`, its contribution
+    added into ``out`` at ``pixel`` and its shadow rays into ``shadow`` (an
+    i64 0-d tensor). Returns the children as one block of 2n lanes
+    (origin, direction, weight, pixel, active): the refract children, then
+    the reflect children."""
+    contrib, rays, children = _shade_level(scene, dyn, ro, rd, weight)
+    out.index_add_(0, pixel, contrib)
+    shadow += rays
+    return (*(torch.cat([c[i] for c in children]) for i in range(3)),
+            torch.cat([pixel, pixel]), torch.cat([c[3] for c in children]))
+
+
+def _shade_level_kernels(tables, scene, dyn, ro, rd, weight, pixel, out,
+                         shadow):
+    """:func:`_level_plain`'s contract on the card, given the frame's
+    ``whitted_shade.tables``: the closest-hit trace, ``shade_pre`` for the
+    shadow rays, one any-hit trace per point light on its slice of them,
+    then ``shade_post``, which adds into ``out`` and ``shadow`` and writes
+    the children."""
+    with span('trace.closest'):
+        hit = trace(scene, dyn, ro, rd)
+    lv = whitted_shade.level(ro, rd, hit)
+    sro, sfl, tmax, sact = whitted_shade.shade_pre(tables, lv)
+    hits = []
+    for li in range(sro.shape[0]):
+        with span('trace.shadow') as sp:
+            if sp is not None:
+                sp.attrs['light'] = li
+            hits.append(trace(scene, dyn, sro[li], sfl[li], t_max=tmax[li],
+                              active=sact[li], any_hit=True).intersected)
+    # [L, n]; with no light, sact is the empty [0, n]
+    occluded = torch.stack(hits) if hits else sact
+    return whitted_shade.shade_post(tables, lv, weight, pixel, occluded, out,
+                                    shadow)
+
+
 def _compact(ro, rd, w, pixel, active, cap: int, ordered: bool):
     """The active lanes, at most ``cap`` of them. ``ordered`` says that the
     JAX package's level was longer than ``cap`` and so went through its
@@ -190,9 +237,11 @@ def render_whitted(scene, dyn, camera, *, width: int, height: int,
     the cap dropped when the level was formed) and ``shadow`` (shadow rays
     traced).
 
-    Spans (``utils/profiling.py``): ``whitted.rays``, then per depth
-    ``whitted.level`` (attributes ``depth``, ``lanes``: the lanes traced,
-    ``dropped``, ``ordered``: whether the level was formed by the
+    Each level runs :func:`_shade_level_kernels` on the card, with the
+    scene's tables gathered once for the frame, and :func:`_level_plain`
+    elsewhere. Spans (``utils/profiling.py``): ``whitted.rays``, then per
+    depth ``whitted.level`` (attributes ``depth``, ``lanes``: the lanes
+    traced, ``dropped``, ``ordered``: whether the level was formed by the
     weight-priority compaction) around ``trace.closest``, ``trace.shadow``
     per light and ``whitted.compact``."""
     dev = camera.eye.device
@@ -204,25 +253,27 @@ def render_whitted(scene, dyn, camera, *, width: int, height: int,
         ro = ro.contiguous()
         out = torch.zeros((B, 3), dtype=torch.float32, device=dev)
         weight = torch.ones((B, 3), dtype=torch.float32, device=dev)
+        shadow = torch.zeros(max_depth, dtype=torch.int64, device=dev)
     pixel = lanes
     cap = 2 * B
     level_lanes, dropped, ordered = B, 0, False
+    level = (functools.partial(_shade_level_kernels,
+                               whitted_shade.tables(scene, dyn))
+             if dev.type == 'cuda' else _level_plain)
 
     for depth in range(max_depth):
         n = ro.shape[0]
-        shadow = 0
         children = None
         with span('whitted.level') as lv:
             if lv is not None:
                 lv.attrs.update(depth=depth, lanes=n, dropped=dropped,
                                 ordered=int(ordered))
             if n:
-                contrib, shadow, children = _shade_level(scene, dyn, ro, rd,
-                                                         weight)
-                out.index_add_(0, pixel, contrib)
+                children = level(scene, dyn, ro, rd, weight, pixel, out,
+                                 shadow[depth])
             if stats is not None:
                 stats.append(dict(lanes=level_lanes, active=n,
-                                  dropped=dropped, shadow=shadow))
+                                  dropped=dropped, shadow=shadow[depth]))
             if depth == max_depth - 1:
                 break
             ordered = 2 * level_lanes > cap
@@ -231,10 +282,8 @@ def render_whitted(scene, dyn, camera, *, width: int, height: int,
                 dropped = 0
                 continue
             with span('whitted.compact'):
-                (ro, rd, weight, pixel), dropped = _compact(
-                    *(torch.cat([c[i] for c in children]) for i in range(3)),
-                    torch.cat([pixel, pixel]),
-                    torch.cat([c[3] for c in children]), cap, ordered)
+                (ro, rd, weight, pixel), dropped = _compact(*children, cap,
+                                                            ordered)
     if stats is not None:
         for s in stats:
             s['shadow'] = int(s['shadow'])

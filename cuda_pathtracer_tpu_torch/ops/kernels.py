@@ -37,8 +37,8 @@ NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-O3', '-std=c++17',
               '-Xcompiler', '-fPIC', '-fmad=false', '-Xptxas', '-v']
 
 NAMES = ('traverse', 'guiding_scatter', 'blur', 'traverse_packet',
-         'probe_gather', 'probe_slab', 'probe_step', 'probe_onehot',
-         'probe_packet_step', 'probe_decision', 'probe_visit',
+         'whitted_shade', 'probe_gather', 'probe_slab', 'probe_step',
+         'probe_onehot', 'probe_packet_step', 'probe_decision', 'probe_visit',
          'probe_packet_walk')
 LAUNCHES = dict.fromkeys(NAMES, 0)
 PLAIN_ON_CUDA = dict.fromkeys(NAMES, 0)
@@ -55,6 +55,10 @@ _SIGNATURES = {
     'cpt_blur': (_I, [_P, _P, _F, _P, _I, _I, _P, _P]),
     'cpt_traverse_packet': (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                  _P, _P, _P, _P]),
+    # (scene table pointers, their lengths, the level's ray and hit
+    # pointers, lanes, outputs..., stream)
+    'cpt_whitted_shade_pre': (_I, [_P, _P, _P, _I, _P, _P, _P, _P, _P]),
+    'cpt_whitted_shade_post': (_I, [_P, _P, _P, _I] + [_P] * 11),
     'cpt_probe_gather': (_I, [_I, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     'cpt_probe_slab': (_I, [_I, _P, _P, _I, _I, _P]),
     'cpt_probe_step': (_I, [_P, _P, _P, _I, _I, _I, _I, _I, _P]),

@@ -4,16 +4,21 @@ Marked ``cuda``: without a CUDA device they skip. This file imports no JAX,
 so on a machine without it run it without the repo's conftest:
 ``python -m pytest tests/test_torch_cuda.py -m cuda --noconftest``.
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
 
 import _torch_traverse_cases as cases
-from _torch_room import build_room, CAMERA
+from _torch_room import (CAMERA, GLASS_CAMERA, _grid, build_glass_room,
+                         build_room)
 from cuda_pathtracer_tpu_torch.core.camera import Camera
 from cuda_pathtracer_tpu_torch.models import pathtracer as ptm
+from cuda_pathtracer_tpu_torch.models import raytracer as trt
 from cuda_pathtracer_tpu_torch.models.pathtracer import Pathtracer
-from cuda_pathtracer_tpu_torch.ops import blur, guiding_scatter, kernels
+from cuda_pathtracer_tpu_torch.ops import (blur, dispatch, guiding_scatter,
+                                           kernels, whitted_shade)
 from cuda_pathtracer_tpu_torch.ops import traverse_packet as tp1
 from cuda_pathtracer_tpu_torch.ops import traverse_packet2 as tp2
 from cuda_pathtracer_tpu_torch.ops.traverse import _primitives_prepass
@@ -222,20 +227,41 @@ def test_blur_kernel_matches_plain(dev, W, H, n):
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
-@pytest.mark.parametrize('name', ['guiding_scatter', 'blur'])
-def test_wrapper_launches_once_and_allocates_only_outputs(dev, name):
+@pytest.mark.parametrize('name', ['guiding_scatter', 'blur',
+                                  'whitted_shade_pre', 'whitted_shade_post'])
+def test_wrapper_launches_once_and_allocates_only_outputs(dev, room, name):
     """One launch counted per call, and no device memory beyond the
     outputs (the allocator rounds each block up to 512 bytes)."""
     if name == 'guiding_scatter':
         e, w, seg, n_bins = _scatter_case('half kept')
         args = [torch.as_tensor(a, device=dev) for a in (e, w, seg)]
         call = lambda: guiding_scatter.segment_sum_pairs(*args, n_bins)
-        out_bytes = n_bins * 8
-    else:
+        out_bytes = [n_bins * 8]
+    elif name == 'blur':
         W, H = 333, 77
         args = [torch.rand((W * H, 4), device=dev) + 0.1 for _ in range(2)]
         call = lambda: blur.blur_luminance(*args, 9.0, W, H)
-        out_bytes = W * H * 12
+        out_bytes = [W * H * 12]
+    else:
+        arr, dyn = room
+        n = 10000
+        ro, rd = _room_rays(arr, dev, n)[:2]
+        tab = whitted_shade.tables(arr, dyn)
+        lv = whitted_shade.level(ro, rd, dispatch.trace(arr, dyn, ro, rd))
+        L = tab.n_lights
+        if name == 'whitted_shade_pre':
+            call = lambda: whitted_shade.shade_pre(tab, lv)
+            out_bytes = [L * n * 12, L * n * 12, L * n * 4, L * n]
+        else:
+            weight = torch.rand((n, 3), device=dev)
+            pixel = torch.arange(n, device=dev)
+            occluded = torch.rand((L, n), device=dev) < 0.5
+            frame = torch.zeros((n, 3), device=dev)
+            count = torch.zeros((), dtype=torch.int64, device=dev)
+            call = lambda: whitted_shade.shade_post(
+                tab, lv, weight, pixel, occluded, frame, count)
+            out_bytes = [2 * n * 12] * 3 + [2 * n * 8, 2 * n]
+        name = 'whitted_shade'
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -243,7 +269,8 @@ def test_wrapper_launches_once_and_allocates_only_outputs(dev, name):
     out = call()
     torch.cuda.synchronize()
     assert kernels.LAUNCHES[name] == before + 1
-    assert torch.cuda.max_memory_allocated() - base == -(-out_bytes // 512) * 512
+    assert torch.cuda.max_memory_allocated() - base == sum(
+        -(-b // 512) * 512 for b in out_bytes)
     del out
 
 
@@ -507,3 +534,208 @@ def test_probe_packet_walk_matches_plain(dev, lab_setup, wave, variant):
         if a.dtype == torch.float32:
             a, b = a.view(torch.int32), b.view(torch.int32)
         assert torch.equal(a.long(), b.long()), k
+
+
+# ---- the Whitted level's shading (csrc/whitted_shade.cu) against the
+# plain route (models/raytracer.py::_level_plain, _shade_level)
+
+SIBENIK_CAMERA = dict(eye=[0.0, 5.0, -16.0], view_dir=[0.0, 0.0, 1.0], d=1.5,
+                      focal_length=12.0, aperture=0.0)
+OUTSIDE_CAMERA = dict(eye=[0.0, 4.0, -17.0], view_dir=[0.0, -0.2, 1.0],
+                      d=1.5, focal_length=12.0, aperture=0.02)
+
+
+def _bare_room(add_cube):
+    """Triangles only, no sphere or plane: a floor, a half-mirror back
+    wall, a glass cube (transmit 0.9, IOR 1.5, absorption) and a plain one
+    turned and scaled, one point light."""
+    s = scene_mod.Scene(asset_dirs=['.'])
+    M = scene_mod.Material
+    floor = s.add_material(M.DIFFUSE((0.8, 0.7, 0.6)))
+    mirror_m = M.DIFFUSE((0.6, 0.6, 0.7))
+    mirror_m.reflect = 0.5
+    mirror = s.add_material(mirror_m)
+    glass_m = M.DIFFUSE((0.9, 1.0, 0.9))
+    glass_m.transmit = 0.9
+    glass_m.refractive_index = 1.5
+    glass_m.absorption = (0.2, 0.1, 0.4)
+    glass = s.add_material(glass_m)
+    plain = s.add_material(M.DIFFUSE((0.3, 0.6, 0.3)))
+    for (v0, v1, v2, uv6), mat in (
+            (_grid([-3, 0, -2], [0, 0, 6], [6, 0, 0], 4, 4), floor),
+            (_grid([-3, 0, 4], [0, 4, 0], [6, 0, 0], 2, 3), mirror)):
+        s.add_object(scene_mod.GameObject(s.add_mesh(
+            v0.astype(np.float32), v1.astype(np.float32),
+            v2.astype(np.float32), mat, uv=uv6)))
+    for mat, pos, rot, scale in ((glass, [-0.8, 0.9, 1.5], 0.3, 0.8),
+                                 (plain, [1.4, 0.5, 2.2], 0.4, 0.5)):
+        cube = scene_mod.GameObject(add_cube(s, mat))
+        cube.position[:] = pos
+        cube.rotation[1] = rot
+        cube.scale[:] = scale
+        s.add_object(cube)
+    s.add_point_light(scene_mod.PointLight((0.0, 3.0, 0.0), (5.0, 5.0, 5.0)))
+    s.finalize()
+    return s
+
+
+# scene, camera, frame size; each a route the kernels must take: sibenik's
+# one light and two spheres, outside's three lights, checker plane and
+# moved cubes, the glass room's inside hits and total internal reflection,
+# and a scene of triangles alone
+WHITTED_CASES = {
+    'sibenik': (lambda: builder.get_scene('sibenik'), SIBENIK_CAMERA, 640, 480),
+    'outside': (lambda: builder.get_scene('outside'), OUTSIDE_CAMERA, 160, 120),
+    'glass_room': (lambda: build_glass_room(scene_mod, builder.add_cube),
+                   GLASS_CAMERA, 160, 120),
+    'no_spheres_or_planes': (lambda: _bare_room(builder.add_cube), CAMERA,
+                             160, 120),
+}
+
+
+@pytest.fixture(scope='module')
+def whitted_scenes(dev):
+    """name -> (arrays, dynamic arrays, camera, width, height); built on
+    first use. ``outside`` is moved to t = 2 first."""
+    built = {}
+
+    def get(name):
+        if name not in built:
+            make, cam, W, H = WHITTED_CASES[name]
+            scene = make()
+            if name == 'outside':
+                scene.update(None, 2.0)
+            built[name] = (scene.to_device(dev), scene.dynamic_arrays(dev),
+                           Camera.create(**cam, device=dev), W, H)
+        return built[name]
+    return get
+
+
+def _level_inputs(arr, dyn, cam, W, H):
+    """The rays and weights of every level of a depth-7 frame, as the plain
+    route forms them."""
+    levels = []
+
+    def spy(tables, scene, dyn_, ro, rd, weight, *rest):
+        levels.append((ro.clone(), rd.clone(), weight.clone()))
+        return trt._level_plain(scene, dyn_, ro, rd, weight, *rest)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(trt, '_shade_level_kernels', spy)
+        trt.render_whitted(arr, dyn, cam, width=W, height=H, max_depth=7)
+    return levels
+
+
+def _run_level(route, arr, dyn, ro, rd, weight):
+    """One level through ``route`` with every lane its own pixel, so the
+    frame holds each lane's contribution: (frame, shadow rays, children,
+    the traces' (origin, direction, t_max, active, hit))."""
+    n = ro.shape[0]
+    calls = []
+
+    def traced(*a, **kw):
+        hit = dispatch.trace(*a, **kw)
+        calls.append((a[2], a[3], kw.get('t_max'), kw.get('active'), hit))
+        return hit
+    out = torch.zeros((n, 3), device=ro.device)
+    count = torch.zeros((), dtype=torch.int64, device=ro.device)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(trt, 'trace', traced)
+        children = route(arr, dyn, ro, rd, weight,
+                         torch.arange(n, device=ro.device), out, count)
+    return out, count, children, calls
+
+
+def _same(a, b) -> bool:
+    if a is None or b is None:
+        return a is b
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return a.shape == b.shape and torch.equal(a, b)
+
+
+def _levels_agree(arr, dyn, levels) -> list:
+    """Every level through both routes; the names of the outputs that
+    differ, per level, and the shadow rays traced."""
+    report = []
+    for depth, (ro, rd, weight) in enumerate(levels):
+        p_out, p_count, p_children, p_calls = _run_level(
+            trt._level_plain, arr, dyn, ro, rd, weight)
+        k_out, k_count, k_children, k_calls = _run_level(
+            functools.partial(trt._shade_level_kernels,
+                              whitted_shade.tables(arr, dyn)),
+            arr, dyn, ro, rd, weight)
+        bad = [f'{name} {f}'
+               for name, pc, kc in zip(('closest',) + ('shadow',) * 8,
+                                       p_calls, k_calls)
+               for f, x, y in zip(('origin', 'direction', 't_max', 'active'),
+                                  pc[:4], kc[:4]) if not _same(x, y)]
+        bad += [f'trace {i} hit' for i, (pc, kc) in
+                enumerate(zip(p_calls, k_calls))
+                if not all(map(_same, pc[4][:4], kc[4][:4]))]
+        if len(p_calls) != len(k_calls):
+            bad.append(f'traces {len(p_calls)} vs {len(k_calls)}')
+        bad += [f'child {f}' for f, x, y in zip(
+            ('origin', 'direction', 'weight', 'pixel', 'active'),
+            p_children, k_children) if not _same(x, y)]
+        if not _same(p_out, k_out):
+            bad.append('contribution')
+        if int(p_count) != int(k_count):
+            bad.append(f'shadow rays {int(p_count)} vs {int(k_count)}')
+        report.append((depth, ro.shape[0], int(p_count), bad))
+    return report
+
+
+@pytest.mark.parametrize('name', list(WHITTED_CASES))
+def test_whitted_shade_kernels_match_plain(dev, whitted_scenes, name):
+    """Every level of a depth-7 frame through the two kernels and through
+    the plain route, on the same rays: the shadow rays handed to each
+    any-hit trace (origin, direction, t_max, active), the children (origin,
+    direction, weight, pixel, active) and each lane's contribution bit for
+    bit, and the same count of shadow rays."""
+    arr, dyn, cam, W, H = whitted_scenes(name)
+    levels = _level_inputs(arr, dyn, cam, W, H)
+    assert len(levels) == 7 or name != 'sibenik'
+    report = _levels_agree(arr, dyn, levels)
+    for depth, n, shadow, bad in report:
+        print(f'{name} level {depth}: {n} lanes, {shadow} shadow rays, '
+              f'differ: {bad}')
+    assert levels and not any(bad for *_, bad in report)
+    assert sum(shadow for _, _, shadow, _ in report) > 0
+    if name == 'outside':
+        assert arr.point_light_pos.shape[0] == 3
+        assert not torch.equal(dyn.inst_transform[:, :, :3],
+                               torch.eye(3, device=dev).expand(
+                                   dyn.inst_transform.shape[0], 3, 3))
+    if name == 'no_spheres_or_planes':
+        assert arr.sphere_pos.shape[0] == arr.plane_normal.shape[0] == 0
+
+
+@pytest.mark.parametrize('name', ['sibenik', 'glass_room'])
+def test_whitted_frame_kernels_match_plain_route(dev, whitted_scenes, name):
+    """A depth-7 frame on the card through the kernels and through the
+    plain route: the same stats, and the frame equal up to the order of the
+    atomic adds into a pixel. Its contributions are non-negative, so two
+    orders of summing k of them differ by at most 2 (k - 1) u of the sum
+    (u = 2^-24); a pixel sums at most 2^7 - 1 lanes: rtol 1.6e-5. The
+    kernels launch twice a level that has lanes, and no plain version runs."""
+    arr, dyn, cam, W, H = whitted_scenes(name)
+    frames, stats = [], []
+    for route in ('kernels', 'plain'):
+        stats.append([])
+        with pytest.MonkeyPatch.context() as mp:
+            if route == 'plain':
+                mp.setattr(trt, '_shade_level_kernels',
+                           lambda tables, *a: trt._level_plain(*a))
+            launches = kernels.LAUNCHES['whitted_shade']
+            plain = kernels.PLAIN_ON_CUDA['whitted_shade']
+            frames.append(trt.render_whitted(arr, dyn, cam, width=W, height=H,
+                                             max_depth=7, stats=stats[-1]))
+        live = sum(1 for s in stats[-1] if s['active'])
+        if route == 'kernels':
+            assert kernels.LAUNCHES['whitted_shade'] - launches == 2 * live
+            assert kernels.PLAIN_ON_CUDA['whitted_shade'] == plain
+        else:
+            assert kernels.PLAIN_ON_CUDA['whitted_shade'] - plain == live
+    assert stats[0] == stats[1]
+    assert (frames[0] >= 0).all() and torch.isfinite(frames[0]).all()
+    assert torch.allclose(frames[0], frames[1], rtol=1.6e-5, atol=0.0)

@@ -15,6 +15,10 @@ lanes the JAX package keeps (the same tolerances).
 (c) ``_compact`` keeps the JAX ``_compact``'s active lanes, in its order,
 on weights full of ties; ``Raytracer.image`` is the JAX package's display
 of the frame (w = 1, no blur whatever ``blur`` says).
+
+(d) The card's route of a level (``_shade_level_kernels``: shadow rays in
+[L, n] blocks, children in 2n-row buffers), its two kernels stood in by
+plain code, gives the plain route's frame and stats on the CPU.
 """
 import numpy as np
 import pytest
@@ -152,3 +156,93 @@ def test_image_matches_jax():
     assert got.shape == (H, W, 3)
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-7)
     np.testing.assert_array_equal(got, tr.image().numpy())
+
+
+def _pre_standin(calls):
+    """``whitted_shade.shade_pre``'s contract from the plain version: its
+    shadow traces' rays, stacked into [L, n] blocks."""
+    def pre(tables, lv):
+        (scene, dyn), (ro, rd, hit) = tables, lv
+        rays = []
+
+        def fake(scene_, dyn_, o, d, *, t_max=None, active=None,
+                 any_hit=False):
+            if any_hit:
+                rays.append((o, d, t_max, active))
+                return hit._replace(intersected=torch.zeros_like(active))
+            return hit
+        calls['pre'] += 1
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(trt, 'trace', fake)
+            trt._shade_level(scene, dyn, ro, rd, torch.ones_like(ro))
+        return tuple(torch.stack(x) for x in zip(*rays))
+    return pre
+
+
+def _post_standin(calls):
+    """``whitted_shade.shade_post``'s contract from the plain version, given
+    the shadow traces' hits: the contribution added into the frame, the
+    shadow rays into the counter, the children written into 2n-row buffers
+    (refract rows [0, n), reflect rows [n, 2n))."""
+    def post(tables, lv, weight, pixel, occluded, out, shadow):
+        (scene, dyn), (ro, rd, hit) = tables, lv
+        lights = iter(occluded)
+
+        def fake(scene_, dyn_, o, d, *, any_hit=False, **kw):
+            return hit._replace(intersected=next(lights)) if any_hit else hit
+        calls['post'] += 1
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(trt, 'trace', fake)
+            contrib, rays, children = trt._shade_level(scene, dyn, ro, rd,
+                                                       weight)
+        out.index_add_(0, pixel, contrib)
+        shadow += rays
+        n = ro.shape[0]
+        bufs = [torch.empty((2 * n, 3)) for _ in range(3)] + [
+            torch.empty(2 * n, dtype=torch.int64),
+            torch.empty(2 * n, dtype=torch.bool)]
+        for half, (o, d, w, a) in zip((slice(0, n), slice(n, 2 * n)),
+                                      children):
+            for buf, x in zip(bufs, (o, d, w, pixel, a)):
+                buf[half] = x
+        return tuple(bufs)
+    return post
+
+
+@pytest.mark.parametrize('room', [False, True], ids=['outside', 'glass_room'])
+def test_kernel_route_layout_matches_plain_route(assets, monkeypatch, room):
+    """The frame and stats of depth-7 frames, bit for bit: the outside scene
+    moved to t = 2 (three lights, the checker plane, moved cubes) and the
+    glass room (inside hits, total internal reflection, the lane cap)."""
+    if room:
+        scene, cam = build_glass_room(ts, add_cube), GLASS_CAMERA
+    else:
+        scene, cam = t_outside(asset_dirs=[assets]), OUTSIDE_CAMERA
+        scene.update(None, 2.0)
+    camera = TCamera.create(**cam, device='cpu')
+    rt = trt.Raytracer(scene, W, H, device='cpu')
+    rt.render(camera, should_clear=True)
+    frames, stats = [], []
+    for route in ('plain', 'kernels'):
+        if route == 'kernels':
+            calls = {'pre': 0, 'post': 0}
+            # the scene's and the level's arrays handed on as they are
+            monkeypatch.setattr(
+                trt, '_level_plain', lambda scene, dyn, *a:
+                trt._shade_level_kernels((scene, dyn), scene, dyn, *a))
+            monkeypatch.setattr(trt.whitted_shade, 'level',
+                                lambda ro, rd, hit: (ro, rd, hit))
+            monkeypatch.setattr(trt.whitted_shade, 'shade_pre',
+                                _pre_standin(calls))
+            monkeypatch.setattr(trt.whitted_shade, 'shade_post',
+                                _post_standin(calls))
+        stats.append([])
+        rt.render(camera, should_clear=False, stats=stats[-1])
+        frames.append(rt.frame.clone())
+    levels = sum(1 for s in stats[0] if s['active'])
+    assert calls == {'pre': levels, 'post': levels} and levels == 7
+    assert sum(s['shadow'] for s in stats[0]) > 0
+    if room:
+        assert max(s['dropped'] for s in stats[0]) > 0
+    assert stats[0] == stats[1]
+    assert torch.equal(frames[0], frames[1])
