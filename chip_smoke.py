@@ -3,7 +3,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --cards 4     # only --shard across 4 cards
 
-Builds the thirteen hand-written CUDA kernels from ``cuda_pathtracer_tpu_torch/
+Builds the fourteen hand-written CUDA kernels from ``cuda_pathtracer_tpu_torch/
 csrc`` and drives the port's render paths once at full size (phases 1-3
 and 5-7), then the eight probe kernels' sweeps (phase 4, run last):
 
@@ -51,8 +51,10 @@ inputs (for the traversals, the node and leaf visits of the plain walks).
    active lanes and lanes the cap dropped per level, the traversal launches
    and their device ms (profiler), rays traced and Mrays/s; on each of the
    three depth-7 frames the level-0 closest-hit and shadow waves (2,073,600
-   lanes) are recorded and traced again on the kernel and on its plain walk
-   (t, prim_id, prim_type bit-identical, ``hold_level0``), and every level
+   lanes) are recorded and traced again on the kernels and on the plain
+   prepass and walk (every field of the hit bit-identical, ``hold_level0``;
+   the prepass kernel alone against the plain prepass, timed with its
+   bound by bytes, ``hold_prepass``), and every level
    of each is shaded again by the two ``whitted_shade`` kernels and by the
    plain route on the same rays and hits, each lane its own pixel: shadow
    rays, contributions, children and shadow-ray counts bit-equal, each
@@ -206,6 +208,8 @@ KERNELS = {
                     'tools/kernel_lab3.py:487, tools/subpacket_probe.py:295'),
     'probe_packet_walk': ('cuda_pathtracer_tpu_torch/csrc/probe_packet_walk.cu',
                           'tools/kernel_lab.py:256'),
+    'prepass': ('cuda_pathtracer_tpu_torch/csrc/traverse.cu (prepass_kernel)',
+                'none (ops/traverse.py::_primitives_prepass)'),
 }
 # the kernels each path must launch
 SIBENIK_KERNELS = ('traverse', 'guiding_scatter', 'blur')
@@ -245,6 +249,12 @@ LEAF_OPS = 12 * 56
 # rate).
 SHADE_PRE_BYTES, SHADE_PRE_LIGHT_BYTES = 37, 29
 SHADE_POST_BYTES, SHADE_POST_LIGHT_BYTES = 37 + 20 + 24 + 90, 1
+# bytes a ray the sphere/plane prepass (csrc/traverse.cu's prepass_kernel)
+# must move through HBM: it reads the ray (24) and, where given, t_max (4),
+# active and stop_on_hit (1 each), and writes t, prim_type, prim_id (12),
+# found, live and stop (3). The spheres and planes, a few hundred bytes,
+# are left out: L2 serves them.
+PREPASS_RAY_BYTES, PREPASS_OUT_BYTES = 24, 15
 
 
 def log(msg: str):
@@ -1565,16 +1575,98 @@ def whitted_frame(rt, cam, clear: bool, label: str, failures: list) -> dict:
                 launches=launches, rays=active + shadow, stats=stats)
 
 
-def hold_level0(rt, cam, label: str, failures: list):
+def hold_prepass(label: str, wave: str, scene, ro, rd, opt: dict,
+                 failures: list) -> dict:
+    """The prepass kernel on one recorded trace call (contiguous ro, rd and
+    ``opt``: t_max, active, stop_on_hit, any_hit) against the plain prepass
+    on the card: t, prim_type, prim_id, found, live and stop bit-identical.
+    Returns the kernel's ms over 10 runs with CUDA events behind the sleep
+    pre-roll, the plain version's ms, the bytes that bound the kernel
+    (``PREPASS_*_BYTES``), the largest absolute difference from the plain
+    version over every field (``err``; lanes whose bits agree count 0, a
+    NaN against a number counts inf) and the lanes that differ in any
+    field (``lanes``)."""
+    import torch
+    from cuda_pathtracer_tpu_torch.ops import traverse as tr
+    ms, got = cuda_ms(lambda: tr.prepass(scene, ro, rd, **opt), reps=10,
+                      warmup=1, preroll=True)
+    pms, want = cuda_ms(lambda: tr.prepass_ref(scene, ro, rd, **opt))
+    err, lanes, bad = 0.0, torch.zeros_like(want.found), []
+    for f, a, b in zip(tr.Prepass._fields, got, want):
+        same = (a.view(torch.int32) == b.view(torch.int32)
+                if a.dtype == torch.float32 else a == b)
+        gap = (a.double() - b.double()).abs().nan_to_num(nan=float('inf'))
+        err = max(err, float(torch.where(same, 0.0, gap).max()))
+        lanes |= ~same
+        if not bool(same.all()):
+            bad.append(f)
+    n = ro.shape[0]
+    n_bytes = n * (PREPASS_RAY_BYTES + PREPASS_OUT_BYTES + sum(
+        x.element_size() for x in (opt['t_max'], opt['active'],
+                                   opt['stop_on_hit']) if x is not None))
+    b = bound(n_bytes, 0)[0]
+    n_lanes = int(lanes.sum())
+    log(f'  prepass on the level-0 {wave} wave of {label}: {n} rays, '
+        f'{int(scene.sphere_pos.shape[0])} spheres, '
+        f'{int(scene.plane_normal.shape[0])} planes, {int(want.found.sum())} '
+        f'found | kernel {ms:.4f} ms, bound {b:.4f} ms (bytes, share '
+        f'{b / ms:.3f}), plain {pms:.3f} ms; against plain: max abs err '
+        f'{err}, {n_lanes} lanes differ, in {bad or "no field"}')
+    if bad:
+        failures.append(f'prepass {label} level-0 {wave}: kernel differs '
+                        f'from plain in {bad} on {n_lanes} lanes (max abs '
+                        f'err {err})')
+    return dict(ms=ms, plain_ms=pms, bytes=n_bytes, err=err, lanes=n_lanes)
+
+
+def time_epilogue(label: str, wave: str, scene, dyn, ro, rd, opt: dict,
+                  want_uv: bool) -> dict:
+    """The v2 walk on one recorded trace call, on the prepass kernel's t0,
+    live and stop, timed alone (the seven arguments, as the benchmark's
+    traverse roofline times it) and with the merge epilogue (as the
+    renderer runs it), in turns, three times each over 10 runs behind the
+    sleep pre-roll. Returns the least ms of each and their difference."""
+    from cuda_pathtracer_tpu_torch.ops import traverse as tr
+    from cuda_pathtracer_tpu_torch.ops import traverse_packet2 as tp2
+    pre = tr.prepass(scene, ro, rd, **opt)
+    table = tp2.MergedTable(dyn.packet_merged, dyn.depth)
+    uv = want_uv and not opt['any_hit']
+    runs = dict(
+        alone=lambda: tp2.traverse_merged(table, ro, rd, pre.t, pre.live,
+                                          pre.stop, uv),
+        merged=lambda: tp2.traverse_merged(table, ro, rd, pre.t, pre.live,
+                                           pre.stop, uv, prepass=pre,
+                                           active=opt['active']))
+    got = {k: [] for k in runs}
+    for _ in range(3):
+        for k, fn in runs.items():
+            got[k].append(cuda_ms(fn, reps=10, warmup=1, preroll=True)[0])
+    out = {k: min(v) for k, v in got.items()}
+    out['epilogue'] = out['merged'] - out['alone']
+    log(f'  walk of the level-0 {wave} wave of {label}: alone '
+        f'{out["alone"]:.4f} ms, with the merge epilogue {out["merged"]:.4f} '
+        f'ms (least of 3 x 10 runs each, in turns): epilogue '
+        f'{out["epilogue"]:+.4f} ms')
+    return out
+
+
+def hold_level0(rt, cam, label: str, failures: list) -> dict:
     """Renders one depth-7 frame of ``rt`` recording the rays of its level 0:
     the closest-hit wave of the primary rays (one per pixel, no jitter) and
     the first any-hit shadow wave (every ray from the light, with its t_max).
     Each wave is traced again through ``dispatch.trace`` on the route's
-    kernel, and through it with the traversal swapped for its plain walk, on
-    the card: t, prim_id, prim_type and intersected must be bit-identical."""
+    kernels (the prepass kernel and the walk), and through it with the
+    prepass and the walk swapped for their plain versions, on the card: t,
+    prim_id, prim_type, intersected, u and v must be bit-identical; and the
+    prepass kernel alone against the plain prepass (``hold_prepass``). On
+    v2 the walk is also timed alone and with its merge epilogue
+    (``time_epilogue``). Returns the prepass's sums over the two waves
+    (kernel ms, plain ms, bytes, differing lanes), its largest error, and
+    the walk's ms alone and merged, summed (0 on v1)."""
     import torch
     from cuda_pathtracer_tpu_torch.models import raytracer as rt_mod
     from cuda_pathtracer_tpu_torch.ops import dispatch as dispatch_mod
+    from cuda_pathtracer_tpu_torch.ops import traverse as tr
     from cuda_pathtracer_tpu_torch.ops import traverse_packet as tp1
     from cuda_pathtracer_tpu_torch.ops import traverse_packet2 as tp2
     calls = []
@@ -1587,14 +1679,18 @@ def hold_level0(rt, cam, label: str, failures: list):
         rt.render(cam, should_clear=False)
     stats = {}
 
-    def merged_ref(table, ro, rd, t0, live, stop, want_uv=False):
-        return tp2.traverse_merged_ref(table, ro, rd, t0, live, stop, want_uv,
-                                       stats=stats)
+    def merged_ref(table, ro, rd, t0, live, stop, want_uv=False,
+                   prepass=None, active=None):
+        out = tp2.traverse_merged_ref(table, ro, rd, t0, live, stop, want_uv,
+                                      stats=stats)
+        return out if prepass is None else tr.merge_hit(*out, prepass, active)
 
     def split_ref(tables, ro, rd, t0, live, stop, cheap=False):
         return tp1.traverse_packet_ref(tables, ro, rd, t0, live, stop, cheap,
                                        stats=stats)
 
+    pre = dict(ms=0.0, plain_ms=0.0, bytes=0.0, lanes=0, err=0.0, alone=0.0,
+               merged=0.0)
     for wave in ('closest', 'shadow'):
         if wave not in rec.saved:
             failures.append(f'whitted {label}: no level-0 {wave} wave recorded')
@@ -1603,6 +1699,8 @@ def hold_level0(rt, cam, label: str, failures: list):
         ms, k = cuda_ms(lambda: dispatch_mod.trace(*args, **kw))
         stats.clear()
         with patched(dispatch_mod, 'traverse_merged', merged_ref), \
+                patched(dispatch_mod, 'prepass', tr.prepass_ref), \
+                patched(tp1, 'prepass', tr.prepass_ref), \
                 patched(tp1, 'traverse_split', split_ref):
             pms, p = cuda_ms(lambda: dispatch_mod.trace(*args, **kw))
         active = kw.get('active')
@@ -1610,9 +1708,11 @@ def hold_level0(rt, cam, label: str, failures: list):
 
         def bits(hit, f):
             x = getattr(hit, f)
-            return x.view(torch.int32) if f == 't' else x
+            return x.view(torch.int32) if x.dtype == torch.float32 else x
         diff = {f: int((bits(k, f) != bits(p, f)).sum())
-                for f in ('t', 'prim_id', 'prim_type', 'intersected')}
+                for f in k._fields if getattr(k, f) is not None}
+        if (k.u is None) != (p.u is None):
+            diff['u'] = -1
         visits = stats.get('inner', 0) + stats.get('leaf', 0)
         log(f'  level-0 {wave} wave of {label}: {args[2].shape[0]} rays, '
             f'{n_live} live, {int(k.intersected.sum())} hits, '
@@ -1621,6 +1721,22 @@ def hold_level0(rt, cam, label: str, failures: list):
         if any(diff.values()):
             failures.append(f'whitted {label} level-0 {wave}: kernel disagrees '
                             f'with plain {diff}')
+        # the rays as dispatch.trace hands them to the kernels: contiguous
+        scene, dyn, ro, rd = args
+        ro, rd = ro.contiguous(), rd.contiguous()
+        opt = {key: kw[key].contiguous() if kw.get(key) is not None else None
+               for key in ('t_max', 'active', 'stop_on_hit')}
+        opt['any_hit'] = kw.get('any_hit', False)
+        h = hold_prepass(label, wave, scene, ro, rd, opt, failures)
+        for key in ('ms', 'plain_ms', 'bytes', 'lanes'):
+            pre[key] += h[key]
+        pre['err'] = max(pre['err'], h['err'])
+        if dispatch_mod.use_packet2(dyn):
+            e = time_epilogue(label, wave, scene, dyn, ro, rd, opt,
+                              kw.get('want_uv', False))
+            pre['alone'] += e['alone']
+            pre['merged'] += e['merged']
+    return pre
 
 
 def hold_shading(rt, cam, label: str, failures: list) -> dict:
@@ -1748,8 +1864,9 @@ def run_whitted(cli_main, sibenik, tmp: str, failures: list) -> dict:
     route; each depth-7 frame's levels are shaded again by the
     ``whitted_shade`` kernels and by the plain route (``hold_shading``);
     v1 and v2 must agree, and so must a 64x48 depth-7 outside frame on the
-    card and on the CPU. Returns ({route: launches}, sibenik's shading
-    totals from ``hold_shading``)."""
+    card and on the CPU; on every route the prepass kernel launches once per
+    walk. Returns ({route: launches}, sibenik's shading totals from
+    ``hold_shading``, sibenik's prepass totals from ``hold_level0``)."""
     import torch
     from cuda_pathtracer_tpu_torch.core.camera import Camera
     from cuda_pathtracer_tpu_torch.models import raytracer as rt_mod
@@ -1767,9 +1884,10 @@ def run_whitted(cli_main, sibenik, tmp: str, failures: list) -> dict:
                           f'{2 if clear else 7}', failures)
     counts['sibenik'] = dict(kernels.LAUNCHES)
     if kernels.LAUNCHES['traverse'] <= 0 or kernels.LAUNCHES[
-            'traverse_packet'] or kernels.LAUNCHES['whitted_shade'] <= 0:
+            'traverse_packet'] or kernels.LAUNCHES['whitted_shade'] <= 0 \
+            or kernels.LAUNCHES['prepass'] != kernels.LAUNCHES['traverse']:
         failures.append(f'whitted sibenik: launches {kernels.LAUNCHES}')
-    hold_level0(rt, cam, 'sibenik v2 depth 7', failures)
+    prepass = hold_level0(rt, cam, 'sibenik v2 depth 7', failures)
     shading = hold_shading(rt, cam, 'sibenik v2 depth 7', failures)
     del rt
 
@@ -1801,7 +1919,8 @@ def run_whitted(cli_main, sibenik, tmp: str, failures: list) -> dict:
                 continue
             rt = app.returned[0]
             if got[routes[tag]] <= 0 or got[routes['v2' if v1 else 'v1']] \
-                    or got['whitted_shade'] <= 0:
+                    or got['whitted_shade'] <= 0 \
+                    or got['prepass'] != got[routes[tag]]:
                 failures.append(f'cli --mode ray {tag}: launches {got}')
             if any(kernels.PLAIN_ON_CUDA.values()):
                 failures.append(f'cli --mode ray {tag}: plain versions on '
@@ -1846,7 +1965,7 @@ def run_whitted(cli_main, sibenik, tmp: str, failures: list) -> dict:
         f'agree')
     if share < 0.995:
         failures.append(f'whitted 64x48: card vs CPU only {share:.6f}')
-    return counts, shading
+    return counts, shading, prepass
 
 
 def _poke(port: int, stop, seen: dict):
@@ -2463,13 +2582,23 @@ def main() -> int:
     # ---- phase 3: the Whitted raytracer, the real-time loops, checkpoints
     with tempfile.TemporaryDirectory() as tmp:
         t = time.perf_counter()
-        whitted, shading = run_whitted(cli_main, scene, tmp, failures)
+        whitted, shading, pre = run_whitted(cli_main, scene, tmp, failures)
         launches['whitted_shade'] = whitted['sibenik']['whitted_shade']
         results['whitted_shade'] = dict(
             max_abs_err=shading['err'], ms=shading['ms'],
             plain_ms=shading['plain_ms'], library_ms=None)
         results['whitted_shade']['bound_ms'], \
             results['whitted_shade']['bound_by'] = bound(shading['bytes'], 0)
+        # the prepass on sibenik's level-0 closest-hit and shadow waves
+        launches['prepass'] = whitted['sibenik']['prepass']
+        results['prepass'] = dict(max_abs_err=pre['err'], ms=pre['ms'],
+                                  plain_ms=pre['plain_ms'], library_ms=None)
+        results['prepass']['bound_ms'], results['prepass']['bound_by'] = \
+            bound(pre['bytes'], 0)
+        log(f'sibenik level-0 waves: prepass max abs err {pre["err"]}, '
+            f'{pre["lanes"]} lanes differ; walk alone {pre["alone"]:.4f} ms, '
+            f'with the merge epilogue {pre["merged"]:.4f} ms (epilogue '
+            f'{pre["merged"] - pre["alone"]:+.4f} ms)')
         del scene
         torch.cuda.empty_cache()
         log(f'phase 3a (Whitted frames): {time.perf_counter() - t:.1f} s '

@@ -51,6 +51,36 @@
 //    (which could flush them to zero).
 //  * Divergent half-warps: every ballot and shuffle names the group's 16
 //    lanes (group_mask), never the whole warp.
+//
+// The renderer's trace (ops/dispatch.py::trace) is two launches of this
+// file: prepass_kernel, then traverse_kernel with its merge epilogue.
+//
+// prepass_kernel replaces no TPU kernel: the JAX package's sphere and plane
+// prepass (cuda_pathtracer_tpu/ops/traverse.py::_primitives_prepass) is XLA
+// code in its jitted trace. It is the plain version's ~70 PyTorch launches
+// a trace (ops/traverse.py::prepass_ref: the default t_max, active and
+// stop_on_hit fills, ray_sphere and ray_plane over [B, K] with a fold per
+// family, the live mask) in one launch, one thread per ray, every sphere
+// and plane in a loop (a scene with none costs nothing). Its work is a few
+// dozen flops a primitive; a ray reads 24 bytes (ro, rd), plus up to 6 for
+// t_max, active and stop_on_hit, and writes 15 (t, prim_type and prim_id,
+// found, live and stop: chip_smoke.py's PREPASS_*_BYTES), so it is bound by
+// its launch and the bytes; the primitives are a few hundred bytes, read
+// through the read-only cache. Its values equal the plain version's bit
+// for bit: every product, sum, quotient and root is one IEEE operation in
+// the plain version's order (__fmul_rn and its kin, which no compiler
+// contracts), clamp_min keeps a NaN as torch.clamp_min does, and a
+// family's fold keeps _fold's rule: a primitive must beat the t the ray
+// had before the family strictly, and the lowest index wins an exact-t tie.
+//
+// traverse_kernel's merge epilogue, when the wrapper passes the prepass's
+// prim_type, prim_id and found, writes the trace's Hit directly: the
+// triangle where the walk found one, else the prepass's primitive, and
+// intersected = active & (found | found0), in place of five PyTorch
+// where()s. Without them the kernel writes the walk's own (t, gid, found):
+// the renderer never takes that mode; it is the walk alone, kept so the
+// walk can be timed and checked on its own (the benchmark's traverse
+// roofline, chip_smoke.py's wave holds, utils/kernel_ab.py).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -65,6 +95,129 @@ constexpr int META_BASE_BITS = 20;
 // stack entries per group; the wrapper checks depth + 2 <= MAX_STACK
 constexpr int MAX_STACK = 48;
 
+// ops/traverse.py's primitive tags, constants.T_MAX and constants.EPS
+constexpr int PRIM_TRIANGLE = 0;
+constexpr int PRIM_SPHERE = 1;
+constexpr int PRIM_PLANE = 2;
+constexpr float T_MAX = 9999999.0f;
+constexpr float PLANE_EPS = 1e-3f;
+constexpr float SMALL_A = 0.001f;
+constexpr int PREPASS_BLOCK = 256;
+
+// vecmath.dot: (a0*b0 + a1*b1) + a2*b2, each operation rounded alone
+__device__ __forceinline__ float dot3(float ax, float ay, float az, float bx,
+                                      float by, float bz) {
+  return __fadd_rn(__fadd_rn(__fmul_rn(ax, bx), __fmul_rn(ay, by)),
+                   __fmul_rn(az, bz));
+}
+
+// torch.clamp_min(x, 0.0): a NaN stays NaN (fmaxf alone would drop it)
+__device__ __forceinline__ float clamp_min0(float x) {
+  return x != x ? x : fmaxf(x, 0.0f);
+}
+
+// one family's fold (ops/traverse.py::_fold), fed a primitive at a time:
+// ts_m = t_k where the primitive beats the ray's t before the family, else
+// T_MAX; the least ts_m and the lowest index holding it
+struct Fold {
+  float t_before, best;
+  int j;
+  bool got;
+  __device__ __forceinline__ explicit Fold(float t)
+      : t_before(t), best(T_MAX), j(0), got(false) {}
+  __device__ __forceinline__ void add(int k, bool hit, float ts) {
+    const bool better = hit && ts < t_before;
+    const float m = better ? ts : T_MAX;
+    if (k == 0 || m < best) {
+      best = m;
+      j = k;
+    }
+    got = got || better;
+  }
+};
+
+__global__ void __launch_bounds__(PREPASS_BLOCK)
+    prepass_kernel(const float* __restrict__ ro, const float* __restrict__ rd,
+                   const float* __restrict__ t_max,
+                   const uint8_t* __restrict__ active,
+                   const uint8_t* __restrict__ stop_on_hit, int any_hit,
+                   const float* __restrict__ sphere_pos,
+                   const float* __restrict__ sphere_radius, int n_spheres,
+                   const float* __restrict__ plane_normal,
+                   const float* __restrict__ plane_d, int n_planes, int n,
+                   float* __restrict__ t_out, int* __restrict__ ptype_out,
+                   int* __restrict__ pid_out, uint8_t* __restrict__ found_out,
+                   uint8_t* __restrict__ live_out,
+                   uint8_t* __restrict__ stop_out) {
+  const int i = blockIdx.x * PREPASS_BLOCK + threadIdx.x;
+  if (i >= n) return;
+  const float ox = ro[3 * i], oy = ro[3 * i + 1], oz = ro[3 * i + 2];
+  const float dx = rd[3 * i], dy = rd[3 * i + 1], dz = rd[3 * i + 2];
+  float t = t_max ? t_max[i] : T_MAX;
+  int ptype = PRIM_TRIANGLE, pid = -1;
+  bool found = false;
+  if (n_spheres > 0) {
+    // intersect.ray_sphere
+    const float a = dot3(dx, dy, dz, dx, dy, dz);
+    const bool small_a = fabsf(a) < SMALL_A;
+    const float denom = __fmul_rn(2.0f, small_a ? 1.0f : a);
+    const float a4 = __fmul_rn(4.0f, a);
+    Fold f(t);
+    for (int k = 0; k < n_spheres; ++k) {
+      const float ocx = __fsub_rn(ox, __ldg(sphere_pos + 3 * k));
+      const float ocy = __fsub_rn(oy, __ldg(sphere_pos + 3 * k + 1));
+      const float ocz = __fsub_rn(oz, __ldg(sphere_pos + 3 * k + 2));
+      const float r = __ldg(sphere_radius + k);
+      const float b = __fmul_rn(2.0f, dot3(dx, dy, dz, ocx, ocy, ocz));
+      const float c =
+          __fsub_rn(dot3(ocx, ocy, ocz, ocx, ocy, ocz), __fmul_rn(r, r));
+      const float det = __fsub_rn(__fmul_rn(b, b), __fmul_rn(a4, c));
+      const float sdet = __fsqrt_rn(clamp_min0(det));
+      const float tmin = __fdiv_rn(__fsub_rn(-b, sdet), denom);
+      const float tmax = __fdiv_rn(__fadd_rn(-b, sdet), denom);
+      f.add(k, !small_a && det >= 0.0f && tmax > 0.0f,
+            tmin < 0.0f ? tmax : tmin);
+    }
+    if (f.got) {
+      t = f.best;
+      ptype = PRIM_SPHERE;
+      pid = f.j;
+      found = true;
+    }
+  }
+  if (n_planes > 0) {
+    // intersect.ray_plane, with vecmath.normalize(rd) once a ray
+    const float len = __fsqrt_rn(clamp_min0(dot3(dx, dy, dz, dx, dy, dz)));
+    const float nx = __fdiv_rn(dx, len), ny = __fdiv_rn(dy, len),
+                nz = __fdiv_rn(dz, len);
+    Fold f(t);
+    for (int k = 0; k < n_planes; ++k) {
+      const float px = __ldg(plane_normal + 3 * k);
+      const float py = __ldg(plane_normal + 3 * k + 1);
+      const float pz = __ldg(plane_normal + 3 * k + 2);
+      const float q = dot3(nx, ny, nz, px, py, pz);
+      const bool flat = fabsf(q) < PLANE_EPS;
+      const float ts = __fdiv_rn(
+          -__fadd_rn(dot3(ox, oy, oz, px, py, pz), __ldg(plane_d + k)),
+          flat ? 1.0f : q);
+      f.add(k, !flat && ts > 0.0f, ts);
+    }
+    if (f.got) {
+      t = f.best;
+      ptype = PRIM_PLANE;
+      pid = f.j;
+      found = true;
+    }
+  }
+  const bool stop = stop_on_hit ? stop_on_hit[i] != 0 : any_hit != 0;
+  t_out[i] = t;
+  ptype_out[i] = ptype;
+  pid_out[i] = pid;
+  found_out[i] = found;
+  live_out[i] = (active == nullptr || active[i]) && !(stop && found);
+  stop_out[i] = stop;
+}
+
 __global__ void __launch_bounds__(BLOCK)
     traverse_kernel(const float* __restrict__ table,
                     const float* __restrict__ ro, const float* __restrict__ rd,
@@ -73,7 +226,12 @@ __global__ void __launch_bounds__(BLOCK)
                     const uint8_t* __restrict__ stop, int n, int want_uv,
                     float* __restrict__ t_out, int* __restrict__ gid_out,
                     uint8_t* __restrict__ found_out, float* __restrict__ u_out,
-                    float* __restrict__ v_out) {
+                    float* __restrict__ v_out,
+                    const int* __restrict__ ptype0,
+                    const int* __restrict__ pid0,
+                    const uint8_t* __restrict__ found0,
+                    const uint8_t* __restrict__ active,
+                    int* __restrict__ ptype_out) {
   const int i = group_ray();
   if (i >= n) return;  // whole groups: n is a count of rays
   const int k = group_lane();
@@ -136,8 +294,17 @@ __global__ void __launch_bounds__(BLOCK)
   }
   if (k == 0) {
     t_out[i] = t;
-    gid_out[i] = gid;
-    found_out[i] = found;
+    if (ptype_out) {
+      // the merge epilogue: gid_out and found_out take prim_id and
+      // intersected; u and v are 0 on a lane with no triangle already
+      const bool act = active == nullptr || active[i];
+      gid_out[i] = found ? gid : pid0[i];
+      ptype_out[i] = found ? PRIM_TRIANGLE : ptype0[i];
+      found_out[i] = act && (found || found0[i]);
+    } else {
+      gid_out[i] = gid;
+      found_out[i] = found;
+    }
     if (want_uv) {
       u_out[i] = bu;
       v_out[i] = bv;
@@ -153,15 +320,37 @@ extern "C" const char* cpt_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
+// ptype0, pid0, found0 and ptype_out null: the walk alone; given: the merge
+// epilogue (active null means every lane)
 extern "C" int cpt_traverse(const float* table, const float* ro,
                             const float* rd, const float* t0,
                             const uint8_t* live, const uint8_t* stop, int n,
                             int want_uv, float* t_out, int* gid_out,
                             uint8_t* found_out, float* u_out, float* v_out,
-                            void* stream) {
+                            const int* ptype0, const int* pid0,
+                            const uint8_t* found0, const uint8_t* active,
+                            int* ptype_out, void* stream) {
   traverse_kernel<<<grid_for(n), BLOCK, 0,
                     static_cast<cudaStream_t>(stream)>>>(
       table, ro, rd, t0, live, stop, n, want_uv, t_out, gid_out, found_out,
-      u_out, v_out);
+      u_out, v_out, ptype0, pid0, found0, active, ptype_out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// t_max, active and stop_on_hit may be null: T_MAX, every lane, any_hit
+extern "C" int cpt_prepass(const float* ro, const float* rd,
+                           const float* t_max, const uint8_t* active,
+                           const uint8_t* stop_on_hit, int any_hit,
+                           const float* sphere_pos, const float* sphere_radius,
+                           int n_spheres, const float* plane_normal,
+                           const float* plane_d, int n_planes, int n,
+                           float* t_out, int* ptype_out, int* pid_out,
+                           uint8_t* found_out, uint8_t* live_out,
+                           uint8_t* stop_out, void* stream) {
+  prepass_kernel<<<(unsigned)((n + PREPASS_BLOCK - 1) / PREPASS_BLOCK),
+                   PREPASS_BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(
+      ro, rd, t_max, active, stop_on_hit, any_hit, sphere_pos, sphere_radius,
+      n_spheres, plane_normal, plane_d, n_planes, n, t_out, ptype_out,
+      pid_out, found_out, live_out, stop_out);
   return static_cast<int>(cudaGetLastError());
 }

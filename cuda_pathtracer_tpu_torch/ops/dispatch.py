@@ -22,12 +22,9 @@ from __future__ import annotations
 
 import os
 
-import torch
-
-from .traverse import Hit, PRIM_TRIANGLE, _primitives_prepass
+from .traverse import Hit, prepass
 from .traverse_packet import PacketTables, traverse_packet
 from .traverse_packet2 import MergedTable, traverse_merged
-from ..constants import T_MAX
 
 PACKET_V1 = bool(int(os.environ.get('CPT_PACKET_V1', '0')))
 
@@ -45,34 +42,24 @@ def trace(scene, dyn, ro, rd, *, t_max=None, active=None,
     stop_on_hit: bool[B] lanes that end at their first hit (default: all
     when ``any_hit``). ``want_uv`` asks for the winning triangle's
     barycentrics in Hit.u / Hit.v (closest-hit only); only v2 gives them,
-    v1 returns ``u = v = None``."""
-    B = ro.shape[0]
-    dev = ro.device
-    if t_max is None:
-        t_max = torch.full((B,), T_MAX, dtype=torch.float32, device=dev)
-    if active is None:
-        active = torch.ones(B, dtype=torch.bool, device=dev)
-    if stop_on_hit is None:
-        stop_on_hit = torch.full((B,), bool(any_hit), device=dev)
+    v1 returns ``u = v = None``.
+
+    On v2 a trace on the card is two launches of ``csrc/traverse.cu``: the
+    sphere/plane prepass (which fills in the defaults), then the walk with
+    its merge epilogue, called through this module's ``traverse_merged``
+    with the prepass's t0, live and stop."""
+    # the one place a trace's rays are made contiguous, as the kernels'
+    # wrappers require (a no-op on rays that are)
+    ro, rd, t_max, active, stop_on_hit = (
+        x.contiguous() if x is not None else None
+        for x in (ro, rd, t_max, active, stop_on_hit))
     if not use_packet2(dyn):
         return traverse_packet(
             scene, PacketTables(dyn.packet_inner, dyn.packet_leaf, dyn.depth),
             ro, rd, t_max=t_max, active=active, any_hit=any_hit,
             stop_on_hit=stop_on_hit)
-    t0, ptype0, pid0, found0 = _primitives_prepass(scene, ro, rd, t_max)
-    # a stop-on-hit lane whose prepass already found an occluder is done
-    live = active & ~(stop_on_hit & found0)
-    want_uv = want_uv and not any_hit
-    t, gid, found, u, v = traverse_merged(
-        MergedTable(dyn.packet_merged, dyn.depth), ro.contiguous(),
-        rd.contiguous(), t0.contiguous(), live, stop_on_hit.contiguous(),
-        want_uv=want_uv)
-    ptype = torch.where(found, torch.full_like(ptype0, PRIM_TRIANGLE), ptype0)
-    pid = torch.where(found, gid, pid0)
-    intersected = active & (found | found0)
-    if want_uv:
-        zero = torch.zeros((), dtype=torch.float32, device=dev)
-        u = torch.where(found, u, zero)
-        v = torch.where(found, v, zero)
-    return Hit(t=t, prim_type=ptype, prim_id=pid, intersected=intersected,
-               u=u, v=v)
+    pre = prepass(scene, ro, rd, t_max=t_max, active=active,
+                  stop_on_hit=stop_on_hit, any_hit=any_hit)
+    return traverse_merged(
+        MergedTable(dyn.packet_merged, dyn.depth), ro, rd, pre.t, pre.live,
+        pre.stop, want_uv=want_uv and not any_hit, prepass=pre, active=active)

@@ -39,7 +39,7 @@ NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-O3', '-std=c++17',
 NAMES = ('traverse', 'guiding_scatter', 'blur', 'traverse_packet',
          'whitted_shade', 'probe_gather', 'probe_slab', 'probe_step',
          'probe_onehot', 'probe_packet_step', 'probe_decision', 'probe_visit',
-         'probe_packet_walk')
+         'probe_packet_walk', 'prepass')
 LAUNCHES = dict.fromkeys(NAMES, 0)
 PLAIN_ON_CUDA = dict.fromkeys(NAMES, 0)
 
@@ -49,8 +49,15 @@ _F = ctypes.c_float
 # C entry points: name -> (restype, argtypes). The launchers return the
 # cudaError_t of cudaGetLastError() after their launch.
 _SIGNATURES = {
+    # (table, ray and prepass pointers, rays, want_uv, outputs, the merge
+    # epilogue's inputs and prim_type output or nulls, stream)
     'cpt_traverse': (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P,
-                          _P, _P]),
+                          _P, _P, _P, _P, _P, _P, _P]),
+    # (ro, rd, t_max, active, stop_on_hit (each may be null), any_hit,
+    # spheres and their count, planes and their count, rays, outputs...,
+    # stream)
+    'cpt_prepass': (_I, [_P, _P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _I, _I]
+                    + [_P] * 7),
     'cpt_guiding_scatter': (_I, [_P, _P, _P, _I, _I, _P, _P]),
     'cpt_blur': (_I, [_P, _P, _F, _P, _I, _I, _P, _P]),
     'cpt_traverse_packet': (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,

@@ -35,10 +35,9 @@ import torch
 
 from . import intersect as isect
 from . import kernels
-from .traverse import Hit, PRIM_TRIANGLE, _primitives_prepass
+from .traverse import Hit, merge_hit, prepass
 from ..accel.wide import (ARITY, LEAF_MAX, INNER_BOX0, INNER_REFS, LEAF_TRIS,
                           LEAF_GIDS, LEAF_GID_MAX)
-from ..constants import T_MAX
 
 ROW = 128
 PBOX0 = 0
@@ -294,21 +293,10 @@ def traverse_packet(scene, tables: PacketTables, ro, rd, t_max=None,
                     stop_on_hit=None) -> Hit:
     """The renderer's trace on the split tables: the sphere/plane prepass,
     then :func:`traverse_split`. Same :class:`Hit` as ``dispatch.trace``,
-    with ``u = v = None`` (shading re-intersects the winning triangle)."""
-    B = ro.shape[0]
-    dev = ro.device
-    if t_max is None:
-        t_max = torch.full((B,), T_MAX, dtype=torch.float32, device=dev)
-    if active is None:
-        active = torch.ones(B, dtype=torch.bool, device=dev)
-    if stop_on_hit is None:
-        stop_on_hit = torch.full((B,), bool(any_hit), device=dev)
-    t0, ptype0, pid0, found0 = _primitives_prepass(scene, ro, rd, t_max)
-    live = active & ~(stop_on_hit & found0)
-    t, gid, found = traverse_split(tables, ro.contiguous(), rd.contiguous(),
-                                   t0.contiguous(), live,
-                                   stop_on_hit.contiguous(), cheap=any_hit)
-    ptype = torch.where(found, torch.full_like(ptype0, PRIM_TRIANGLE), ptype0)
-    pid = torch.where(found, gid, pid0)
-    return Hit(t=t, prim_type=ptype, prim_id=pid,
-               intersected=active & (found | found0))
+    with ``u = v = None`` (shading re-intersects the winning triangle).
+    CUDA tensors must be contiguous (``dispatch.trace`` makes them so)."""
+    pre = prepass(scene, ro, rd, t_max=t_max, active=active,
+                  stop_on_hit=stop_on_hit, any_hit=any_hit)
+    t, gid, found = traverse_split(tables, ro, rd, pre.t, pre.live, pre.stop,
+                                   cheap=any_hit)
+    return merge_hit(t, gid, found, None, None, pre, active)

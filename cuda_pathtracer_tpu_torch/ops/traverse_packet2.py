@@ -32,6 +32,7 @@ import torch
 
 from . import intersect as isect
 from . import kernels
+from .traverse import Hit, Prepass, merge_hit
 from ..accel.wide import (ARITY, LEAF_MAX, INNER_BOX0,
                                             INNER_REFS, LEAF_TRIS, LEAF_GIDS,
                                             LEAF_GID_MAX)
@@ -337,15 +338,33 @@ def traverse_merged_ref(table: MergedTable, ro, rd, t0, live, stop,
 
 
 def traverse_merged(table: MergedTable, ro, rd, t0, live, stop,
-                    want_uv: bool = False):
+                    want_uv: bool = False, *, prepass: Prepass | None = None,
+                    active=None):
     """:func:`traverse_merged_ref`'s contract. CPU tensors take the plain
-    version; CUDA tensors launch ``csrc/traverse.cu`` (or raise)."""
+    version; CUDA tensors launch ``csrc/traverse.cu`` (or raise).
+
+    With ``prepass`` (the :class:`Prepass` that gave t0, live and stop) and
+    the trace's ``active`` lanes (None: every lane), returns the trace's
+    :class:`Hit` instead, the walk's hit merged over the prepass's
+    (:func:`merge_hit`; on the card by the kernel's merge epilogue). The
+    renderer always passes them; the walk alone, with the seven arguments,
+    is there so the walk can be timed and checked on its own (the
+    benchmark's traverse roofline, ``chip_smoke.py``,
+    ``utils/kernel_ab.py``)."""
     if ro.device.type == 'cpu':
-        return traverse_merged_ref(table, ro, rd, t0, live, stop, want_uv)
+        out = traverse_merged_ref(table, ro, rd, t0, live, stop, want_uv)
+        return out if prepass is None else merge_hit(*out, prepass, active)
     rows = table.rows
     B = ro.shape[0]
     kernels.require_cuda('traverse', rows, ro, rd, t0, live, stop,
                          dtypes=(torch.float32,) * 4 + (torch.bool,) * 2)
+    if prepass is not None:
+        merge = (prepass.prim_type, prepass.prim_id, prepass.found) + (
+            (active,) if active is not None else ())
+        kernels.require_cuda('traverse', ro, *merge, dtypes=(
+            torch.float32, torch.int32, torch.int32, torch.bool, torch.bool))
+        if any(x.shape != (B,) for x in merge):
+            raise ValueError('traverse: merge tensors disagree on shape')
     if rows.dim() != 2 or rows.shape[1] != ROW:
         raise ValueError(f'traverse: table must be [N, {ROW}], got {tuple(rows.shape)}')
     if ro.shape != (B, 3) or rd.shape != (B, 3) or t0.shape != (B,) \
@@ -362,13 +381,23 @@ def traverse_merged(table: MergedTable, ro, rd, t0, live, stop,
     found = torch.empty(B, dtype=torch.bool, device=dev)
     u = torch.empty(B, dtype=torch.float32, device=dev) if want_uv else None
     v = torch.empty(B, dtype=torch.float32, device=dev) if want_uv else None
+    ptype, merge_ptrs = None, [None] * 5
+    if prepass is not None:
+        ptype = torch.empty(B, dtype=torch.int32, device=dev)
+        merge_ptrs = [x.data_ptr() for x in merge[:3]] + [
+            active.data_ptr() if active is not None else None,
+            ptype.data_ptr()]
     if B:
         err = lib.cpt_traverse(
             rows.data_ptr(), ro.data_ptr(), rd.data_ptr(), t0.data_ptr(),
             live.data_ptr(), stop.data_ptr(), B, int(want_uv),
             t.data_ptr(), gid.data_ptr(), found.data_ptr(),
             u.data_ptr() if want_uv else None,
-            v.data_ptr() if want_uv else None, kernels.stream_of(ro))
+            v.data_ptr() if want_uv else None, *merge_ptrs,
+            kernels.stream_of(ro))
         kernels.LAUNCHES['traverse'] += 1
         kernels.check(err, 'traverse')
-    return t, gid, found, u, v
+    if prepass is None:
+        return t, gid, found, u, v
+    # with the merge epilogue gid and found hold prim_id and intersected
+    return Hit(t=t, prim_type=ptype, prim_id=gid, intersected=found, u=u, v=v)

@@ -106,7 +106,7 @@ def capture(samples: int):
     waves, calls, saved, traffic = {}, [], [], []
     orig_t, orig_s = dispatch.traverse_merged, guiding.segment_sum_pairs
 
-    def record_wave(table, ro, rd, t0, live, stop, want_uv=False):
+    def record_wave(table, ro, rd, t0, live, stop, want_uv=False, **merge):
         if len(tap.bands) == 1:
             calls.append(ro.shape[0])
             name = (WAVES[len(calls) - 1] if len(calls) <= 3 else
@@ -114,7 +114,7 @@ def capture(samples: int):
             if name and name not in waves:
                 waves[name] = (table, ro.clone(), rd.clone(), t0.clone(),
                                live.clone(), stop.clone(), want_uv)
-        return orig_t(table, ro, rd, t0, live, stop, want_uv)
+        return orig_t(table, ro, rd, t0, live, stop, want_uv, **merge)
 
     def record_scatter(e, w, seg, n_bins):
         if not saved:

@@ -252,7 +252,8 @@ def categorize_kernel(name: str) -> str:
     n = name.lower()
     if n.startswith(('memcpy', 'memset')):
         return 'memcpy/memset'
-    for ours in ('traverse_packet', 'traverse', 'guiding_scatter', 'blur'):
+    for ours in ('traverse_packet', 'traverse', 'prepass', 'guiding_scatter',
+                 'blur'):
         if ours + '_kernel(' in n:
             return ours
     if 'gather' in n or 'index' in n or 'scatter' in n:

@@ -139,6 +139,7 @@ def test_kernel_categories():
     cat = profiling.categorize_kernel
     assert cat('void traverse_kernel(float const*, int)') == 'traverse'
     assert cat('traverse_packet_kernel(float4 const*)') == 'traverse_packet'
+    assert cat('void prepass_kernel(float const*, int)') == 'prepass'
     assert cat('void guiding_scatter_kernel(int4 const*)') == 'guiding_scatter'
     assert cat('void blur_kernel(float4 const*)') == 'blur'
     assert cat('void at::native::vectorized_gather_kernel<16, long>') == 'gather'

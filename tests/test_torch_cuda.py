@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_prepass_cases as pc
 import _torch_traverse_cases as cases
 from _torch_room import (CAMERA, GLASS_CAMERA, _grid, build_glass_room,
                          build_room)
@@ -21,7 +22,8 @@ from cuda_pathtracer_tpu_torch.ops import (blur, dispatch, guiding_scatter,
                                            kernels, whitted_shade)
 from cuda_pathtracer_tpu_torch.ops import traverse_packet as tp1
 from cuda_pathtracer_tpu_torch.ops import traverse_packet2 as tp2
-from cuda_pathtracer_tpu_torch.ops.traverse import _primitives_prepass
+from cuda_pathtracer_tpu_torch.ops.traverse import (_primitives_prepass,
+                                                    prepass, prepass_ref)
 from cuda_pathtracer_tpu_torch.scene import builder, scene as scene_mod
 from cuda_pathtracer_tpu_torch.tools import (bf16_probe, decision_probe,
                                              gather_probe, lab_v1_probe,
@@ -739,3 +741,135 @@ def test_whitted_frame_kernels_match_plain_route(dev, whitted_scenes, name):
     assert stats[0] == stats[1]
     assert (frames[0] >= 0).all() and torch.isfinite(frames[0]).all()
     assert torch.allclose(frames[0], frames[1], rtol=1.6e-5, atol=0.0)
+
+
+# ---------------------------------------------------------------------------
+# the trace as two launches: csrc/traverse.cu's prepass_kernel, then the
+# walk with its merge epilogue, against the plain prepass and against the
+# trace as the card ran it before (_torch_prepass_cases.trace_before: the
+# PyTorch prepass and fills, the walk kernel alone, the where()s)
+
+# trace keywords (the prepass's t_max / active / stop_on_hit each given or
+# left to its default)
+PREPASS_CALLS = {
+    'closest uv': lambda z: dict(active=z['active'], want_uv=True),
+    'defaults': lambda z: dict(),
+    'shadow': lambda z: dict(t_max=z['t_max'], active=z['active'],
+                             any_hit=True),
+    'any-hit defaults': lambda z: dict(any_hit=True),
+    'mixed stop': lambda z: dict(t_max=z['t_max'], active=z['active'],
+                                 stop_on_hit=z['stop'], want_uv=True),
+    'stop, no active': lambda z: dict(t_max=z['t_max'],
+                                      stop_on_hit=z['stop']),
+}
+
+
+@pytest.fixture(scope='module')
+def prepass_room(dev, room):
+    """The room's arrays and tables, and this file's hard prepass rays
+    (half of the random ones moved inside the room) on the card."""
+    arr, dyn = room
+    z = {k: torch.as_tensor(v, device=dev)
+         for k, v in pc.rays(20000, seed=7).items()}
+    rs = np.random.RandomState(8)
+    n = z['ro'].shape[0]
+    inside = torch.as_tensor(rs.rand(n) < 0.5, device=dev)
+    z['ro'] = torch.where(inside[:, None], torch.as_tensor(rs.uniform(
+        [-2.9, 0.05, -1.9], [2.9, 3.9, 3.9], (n, 3)).astype(np.float32),
+        device=dev), z['ro'])
+    return arr, dyn, z
+
+
+def _prepass_scene(arr, prims):
+    return arr if prims == 'room' else pc.with_primitives(arr, prims)
+
+
+@pytest.mark.parametrize('prims', ['room'] + list(pc.PRIMITIVE_SETS))
+@pytest.mark.parametrize('call', list(PREPASS_CALLS))
+def test_prepass_kernel_matches_plain(dev, prepass_room, prims, call):
+    """``prepass_kernel`` against the plain prepass on the same tensors:
+    t, prim_type, prim_id, found, live and stop bit for bit on every lane
+    (ties, tangents, rays from inside, parallel rays, short t_max, NaN and
+    infinite directions, inactive and stop-on-hit lanes), with no sphere,
+    no plane or neither."""
+    arr, dyn, z = prepass_room
+    scene = _prepass_scene(arr, prims)
+    kw = PREPASS_CALLS[call](z)
+    kw.pop('want_uv', None)
+    before = dict(kernels.LAUNCHES)
+    plain = kernels.PLAIN_ON_CUDA['prepass']
+    got = prepass(scene, z['ro'], z['rd'], **kw)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES['prepass'] == before['prepass'] + 1
+    assert kernels.PLAIN_ON_CUDA['prepass'] == plain
+    assert {k: v - before[k] for k, v in kernels.LAUNCHES.items()
+            if v != before[k]} == {'prepass': 1}
+    want = prepass_ref(scene, z['ro'], z['rd'], **kw)
+    assert pc.differing(got, want) == []
+    assert all(x.is_contiguous() for x in got)
+    if prims != 'none':
+        assert want.found.any() and not want.found.all()
+
+
+@pytest.mark.parametrize('route', ['v2', 'v1'])
+@pytest.mark.parametrize('prims', ['room', 'spheres and planes', 'none'])
+@pytest.mark.parametrize('call', list(PREPASS_CALLS))
+def test_trace_matches_the_card_route_before(dev, prepass_room, monkeypatch,
+                                             route, prims, call):
+    """``dispatch.trace`` on the card (v2: the prepass kernel, then the walk
+    with its merge epilogue; v1: the prepass kernel, the v1 walk and the
+    where()s) against the trace as the card ran it before, on the same
+    tensors: every field of the Hit bit for bit on every lane, inactive
+    ones included; one prepass launch and one walk launch per trace, no
+    plain version on the card."""
+    arr, dyn, z = prepass_room
+    scene = _prepass_scene(arr, prims)
+    kw = PREPASS_CALLS[call](z)
+    monkeypatch.setattr(dispatch, 'PACKET_V1', route == 'v1')
+    walk = 'traverse' if route == 'v2' else 'traverse_packet'
+    before = dict(kernels.LAUNCHES)
+    plain = dict(kernels.PLAIN_ON_CUDA)
+    hit = dispatch.trace(scene, dyn, z['ro'], z['rd'], **kw)
+    torch.cuda.synchronize()
+    assert {k: v - before[k] for k, v in kernels.LAUNCHES.items()
+            if v != before[k]} == {'prepass': 1, walk: 1}
+    assert kernels.PLAIN_ON_CUDA == plain
+    want = pc.trace_before(scene, dyn, z['ro'], z['rd'], v1=route == 'v1',
+                           **kw)
+    assert pc.differing(hit, want) == []
+    assert hit.intersected.any() and not hit.intersected.all()
+    if route == 'v2' and kw.get('want_uv'):
+        assert hit.u is not None and bool((hit.u != 0)[hit.intersected].any())
+
+
+@pytest.mark.parametrize('route', ['v2', 'v1'])
+def test_trace_on_sibenik_level0_waves(dev, whitted_scenes, monkeypatch,
+                                       route):
+    """Sibenik's 640x480 depth-7 Whitted frame on the card: over the frame
+    the prepass launches once per walk and no plain version runs; its
+    level-0 closest-hit and shadow waves, traced again, give the Hit of the
+    route before bit for bit."""
+    arr, dyn, cam, W, H = whitted_scenes('sibenik')
+    assert arr.sphere_pos.shape[0] == 2 and arr.plane_normal.shape[0] == 0
+    monkeypatch.setattr(dispatch, 'PACKET_V1', route == 'v1')
+    walk = 'traverse' if route == 'v2' else 'traverse_packet'
+    saved = []
+
+    def recorded(*a, **kw):
+        if len(saved) < 2:
+            saved.append((a, kw))
+        return dispatch.trace(*a, **kw)
+    monkeypatch.setattr(trt, 'trace', recorded)
+    before = dict(kernels.LAUNCHES)
+    plain = dict(kernels.PLAIN_ON_CUDA)
+    trt.render_whitted(arr, dyn, cam, width=W, height=H, max_depth=7)
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in kernels.LAUNCHES.items()}
+    assert launched['prepass'] == launched[walk] >= 8
+    assert kernels.PLAIN_ON_CUDA == plain
+    assert len(saved) == 2 and saved[1][1].get('any_hit')
+    for a, kw in saved:
+        hit = dispatch.trace(*a, **kw)
+        want = pc.trace_before(*a, v1=route == 'v1', **kw)
+        assert pc.differing(hit, want) == []
+        assert hit.intersected.any()
