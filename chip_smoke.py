@@ -3,9 +3,11 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --cards 4     # only --shard across 4 cards
 
-Builds the fourteen hand-written CUDA kernels from ``cuda_pathtracer_tpu_torch/
-csrc`` and drives the port's render paths once at full size (phases 1-3
-and 5-7), then the eight probe kernels' sweeps (phase 4, run last):
+Builds the renderer's kernel library (five render sources under
+``cuda_pathtracer_tpu_torch/csrc``, six ``NAMES``) and the eight probe
+kernels' own library (``cuda_pathtracer_tpu_torch/tools/csrc``), each build
+timed, and drives the port's render paths once at full size (phases 1-3 and
+5-7), then the eight probe kernels' sweeps (phase 4, run last):
 
 1. the converge path: the sibenik scene at 1920x1080, one clear frame, 4
    converge samples (32 bounces, NEE, guiding training) and the blurred
@@ -182,31 +184,31 @@ KERNELS = {
                         'cuda_pathtracer_tpu/ops/traverse_packet.py:180'),
     'whitted_shade': ('cuda_pathtracer_tpu_torch/csrc/whitted_shade.cu',
                       'none (models/raytracer.py::_shade_level)'),
-    'probe_gather': ('cuda_pathtracer_tpu_torch/csrc/probe_gather.cu',
+    'probe_gather': ('cuda_pathtracer_tpu_torch/tools/csrc/probe_gather.cu',
                      'tools/pallas_gather_probe1.py:16, '
                      'tools/pallas_gather_probe2.py:12, '
                      'tools/pallas_gather_probe2.py:27, '
                      'tools/pallas_gather_probe3.py:12, '
                      'tools/pallas_probe_r2a.py:10, tools/pallas_probe_r2f.py:18'),
-    'probe_slab': ('cuda_pathtracer_tpu_torch/csrc/probe_slab.cu',
+    'probe_slab': ('cuda_pathtracer_tpu_torch/tools/csrc/probe_slab.cu',
                    'tools/bf16_vpu_probe.py:56'),
-    'probe_step': ('cuda_pathtracer_tpu_torch/csrc/probe_step.cu',
+    'probe_step': ('cuda_pathtracer_tpu_torch/tools/csrc/probe_step.cu',
                    'tools/pallas_probe_r2b.py:49, tools/pallas_probe_r2c.py:63, '
                    'tools/pallas_probe_r2d.py:52, tools/pallas_probe_r2e.py:62'),
-    'probe_onehot': ('cuda_pathtracer_tpu_torch/csrc/probe_onehot.cu',
+    'probe_onehot': ('cuda_pathtracer_tpu_torch/tools/csrc/probe_onehot.cu',
                      'tools/pallas_probe_onehot.py:63, '
                      'tools/pallas_probe_onehot2.py:74, '
                      'tools/pallas_probe_onehot3.py:68'),
-    'probe_packet_step': ('cuda_pathtracer_tpu_torch/csrc/probe_packet_step.cu',
+    'probe_packet_step': ('cuda_pathtracer_tpu_torch/tools/csrc/probe_packet_step.cu',
                           'tools/pallas_probe_r2f.py:96, '
                           'tools/pallas_probe_r2g.py:158, '
                           'tools/pallas_probe_r2h.py:172, '
                           'tools/pallas_probe_r2i.py:68'),
-    'probe_decision': ('cuda_pathtracer_tpu_torch/csrc/probe_decision.cu',
+    'probe_decision': ('cuda_pathtracer_tpu_torch/tools/csrc/probe_decision.cu',
                        'tools/kernel_lab2.py:136, tools/mosaic_bisect.py:166'),
-    'probe_visit': ('cuda_pathtracer_tpu_torch/csrc/probe_visit.cu',
+    'probe_visit': ('cuda_pathtracer_tpu_torch/tools/csrc/probe_visit.cu',
                     'tools/kernel_lab3.py:487, tools/subpacket_probe.py:295'),
-    'probe_packet_walk': ('cuda_pathtracer_tpu_torch/csrc/probe_packet_walk.cu',
+    'probe_packet_walk': ('cuda_pathtracer_tpu_torch/tools/csrc/probe_packet_walk.cu',
                           'tools/kernel_lab.py:256'),
     'prepass': ('cuda_pathtracer_tpu_torch/csrc/traverse.cu (prepass_kernel)',
                 'none (ops/traverse.py::_primitives_prepass)'),
@@ -1436,10 +1438,9 @@ def run_probes(launches: dict, results: dict, failures: list):
     case held to the plain version (bit for bit); fills ``launches`` and
     ``results`` and appends to ``failures``."""
     import torch
-    from cuda_pathtracer_tpu_torch.ops import kernels
     from cuda_pathtracer_tpu_torch.tools import (
         bf16_probe, decision_probe, gather_probe, lab_v1_probe, onehot_probe,
-        packet_step_probe, step_probe, visit_probe)
+        packet_step_probe, probe_kernels, step_probe, visit_probe)
     for name, mod in (('probe_gather', gather_probe), ('probe_slab', bf16_probe),
                       ('probe_step', step_probe),
                       ('probe_onehot', onehot_probe),
@@ -1448,11 +1449,11 @@ def run_probes(launches: dict, results: dict, failures: list):
                       ('probe_visit', visit_probe),
                       ('probe_packet_walk', lab_v1_probe)):
         t = time.perf_counter()
-        kernels.reset_counts()
+        probe_kernels.reset_counts()
         rows = mod.probe('cuda')
         torch.cuda.synchronize()
-        launches[name] = kernels.LAUNCHES[name]
-        plain = kernels.PLAIN_ON_CUDA[name]
+        launches[name] = probe_kernels.LAUNCHES[name]
+        plain = probe_kernels.PLAIN_ON_CUDA[name]
         if launches[name] <= 0:
             failures.append(f'{name}: no launch on its probe sweep')
         if plain:
@@ -2201,20 +2202,23 @@ def main() -> int:
     from cuda_pathtracer_tpu_torch.ops import traverse_packet as tp1
     from cuda_pathtracer_tpu_torch.ops import traverse_packet2 as tp2
     from cuda_pathtracer_tpu_torch.scene import builder
+    from cuda_pathtracer_tpu_torch.tools import probe_kernels
     from cuda_pathtracer_tpu_torch.utils.frame_profile import ScheduleTap
 
     card = card_line()
     log(f'card: {card} | torch {torch.__version__} cuda {torch.version.cuda}'
         f' | {torch.cuda.get_device_name(0)}')
 
-    t = time.perf_counter()
-    so = kernels.build()
-    kernels.library()
-    log(f'kernel build: {time.perf_counter() - t:.2f} s -> {os.path.relpath(so)}')
-    with open(so[:-3] + '.log') as f:
-        for line in f:
-            if 'registers' in line or 'spill' in line:
-                log('  ptxas: ' + line.strip())
+    for what, lib in (('kernel', kernels), ('probe kernel', probe_kernels)):
+        t = time.perf_counter()
+        so = lib.build()
+        lib.library()
+        log(f'{what} build: {time.perf_counter() - t:.2f} s -> '
+            f'{os.path.relpath(so)}')
+        with open(so[:-3] + '.log') as f:
+            for line in f:
+                if 'registers' in line or 'spill' in line:
+                    log('  ptxas: ' + line.strip())
 
     failures = []
     launches = {}

@@ -1,4 +1,5 @@
-"""Build, load and count the hand-written CUDA kernels under ``csrc/``.
+"""Build, load and count the renderer's hand-written CUDA kernels under
+``csrc/``.
 
 The ``csrc/*.cu`` files (and the ``.cuh`` headers they include) compile,
 one ``nvcc`` process per file in parallel, and link into one shared library
@@ -7,6 +8,9 @@ build takes seconds). The build runs at first use, goes to
 ``cuda_pathtracer_tpu_torch/_build/`` (git-ignored) and is keyed by a hash of
 the sources and flags, so an edited source rebuilds and an unchanged one is
 reused. A failed build raises; nothing falls back to the plain versions.
+:func:`build` and :func:`load` serve any such source directory: the
+measurement kernels of ``tools/csrc/`` build into their own library through
+them, so the renderer's library holds only what it launches.
 
 Flags: ``-fmad=false`` forbids multiply-add contraction so the kernels round
 like the plain PyTorch versions (the traversal's ``t`` is compared bit for
@@ -37,9 +41,7 @@ NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-O3', '-std=c++17',
               '-Xcompiler', '-fPIC', '-fmad=false', '-Xptxas', '-v']
 
 NAMES = ('traverse', 'guiding_scatter', 'blur', 'traverse_packet',
-         'whitted_shade', 'probe_gather', 'probe_slab', 'probe_step',
-         'probe_onehot', 'probe_packet_step', 'probe_decision', 'probe_visit',
-         'probe_packet_walk', 'prepass')
+         'whitted_shade', 'prepass')
 LAUNCHES = dict.fromkeys(NAMES, 0)
 PLAIN_ON_CUDA = dict.fromkeys(NAMES, 0)
 
@@ -66,18 +68,6 @@ _SIGNATURES = {
     # pointers, lanes, outputs..., stream)
     'cpt_whitted_shade_pre': (_I, [_P, _P, _P, _I, _P, _P, _P, _P, _P]),
     'cpt_whitted_shade_post': (_I, [_P, _P, _P, _I] + [_P] * 11),
-    'cpt_probe_gather': (_I, [_I, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
-    'cpt_probe_slab': (_I, [_I, _P, _P, _I, _I, _P]),
-    'cpt_probe_step': (_I, [_P, _P, _P, _I, _I, _I, _I, _I, _P]),
-    'cpt_probe_onehot': (_I, [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
-    # (site, variant, steps, input pointers, output pointers, table rows,
-    # rows of a second table or programs, stream)
-    'cpt_probe_packet_step': (_I, [_I, _I, _I, _P, _P, _I, _I, _P]),
-    'cpt_probe_decision': (_I, [_I, _I, _I, _P, _P, _I, _I, _P]),
-    'cpt_probe_visit': (_I, [_I, _I, _I, _P, _P, _I, _I, _P]),
-    # (variant, input pointers, output pointers, inner rows, leaf rows,
-    # programs, stack capacity, stream)
-    'cpt_probe_packet_walk': (_I, [_I, _P, _P, _I, _I, _I, _I, _P]),
     'cpt_traverse_max_stack': (_I, []),
     'cpt_traverse_packet_max_stack': (_I, []),
     'cpt_error_string': (ctypes.c_char_p, [_I]),
@@ -108,34 +98,37 @@ def _nvcc() -> str:
     raise RuntimeError('nvcc not found: the CUDA kernels cannot be built')
 
 
-def _sources(src_dir: str):
+def sources(src_dir: str = CSRC, headers=()) -> list:
+    """The files a library's key hashes: the ``.cu`` and ``.cuh`` files of
+    ``src_dir`` and the ``headers`` from elsewhere that they include."""
     return sorted(os.path.join(src_dir, f) for f in os.listdir(src_dir)
-                  if f.endswith(('.cu', '.cuh')))
+                  if f.endswith(('.cu', '.cuh'))) + list(headers)
 
 
-def library_path(src_dir: str = CSRC, build_dir: str = BUILD_DIR) -> str:
+def library_path(src_dir: str = CSRC, build_dir: str = BUILD_DIR,
+                 stem: str = 'cpt_kernels', headers=()) -> str:
     h = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
-    for src in _sources(src_dir):
+    for src in sources(src_dir, headers):
         with open(src, 'rb') as f:
             h.update(os.path.basename(src).encode() + f.read())
-    return os.path.join(build_dir, f'libcpt_kernels_{h.hexdigest()[:16]}.so')
+    return os.path.join(build_dir, f'lib{stem}_{h.hexdigest()[:16]}.so')
 
 
-def build(src_dir: str = CSRC, build_dir: str = BUILD_DIR) -> str:
-    """Compile the library unless an up-to-date one exists; returns its path.
-    One ``nvcc -c`` per source, all started together, then one link. The
-    commands and the ptxas report (registers, spills) are kept beside the
-    library as ``.log``. Another source directory (an earlier version of
-    ``csrc/``, for a timing comparison) builds into its own library."""
-    so = library_path(src_dir, build_dir)
+def build(src_dir: str = CSRC, build_dir: str = BUILD_DIR,
+          stem: str = 'cpt_kernels', headers=()) -> str:
+    """Compile the library of ``src_dir``'s ``.cu`` files unless an
+    up-to-date one exists; returns its path. One ``nvcc -c`` per source, all
+    started together, then one link. The commands and the ptxas report
+    (registers, spills) are kept beside the library as ``.log``."""
+    so = library_path(src_dir, build_dir, stem, headers)
     if os.path.exists(so):
         return so
     os.makedirs(build_dir, exist_ok=True)
-    stem = f'{so[:-3]}.{os.getpid()}'
+    part = f'{so[:-3]}.{os.getpid()}'
     nvcc = _nvcc()
     jobs = []
-    for cu in (s for s in _sources(src_dir) if s.endswith('.cu')):
-        obj = f'{stem}.{os.path.basename(cu)}.o'
+    for cu in (s for s in sources(src_dir) if s.endswith('.cu')):
+        obj = f'{part}.{os.path.basename(cu)}.o'
         cmd = [nvcc, *NVCC_FLAGS, '-c', '-o', obj, cu]
         jobs.append((cmd, obj, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
@@ -146,7 +139,7 @@ def build(src_dir: str = CSRC, build_dir: str = BUILD_DIR) -> str:
         if proc.returncode != 0:
             failed.append(f'{os.path.basename(cmd[-1])} ({proc.returncode}):\n{err}')
     if not failed:
-        cmd = [nvcc, *NVCC_FLAGS[:2], '-shared', '-o', f'{stem}.tmp',
+        cmd = [nvcc, *NVCC_FLAGS[:2], '-shared', '-o', f'{part}.tmp',
                *(o for _, o, _ in jobs)]
         res = subprocess.run(cmd, capture_output=True, text=True)
         log.append(' '.join(cmd) + '\n' + res.stdout + res.stderr)
@@ -159,14 +152,15 @@ def build(src_dir: str = CSRC, build_dir: str = BUILD_DIR) -> str:
         f.write('\n'.join(log))
     if failed:
         raise RuntimeError('nvcc failed: ' + '\n'.join(failed))
-    os.replace(f'{stem}.tmp', so)
+    os.replace(f'{part}.tmp', so)
     return so
 
 
-def load(so: str):
-    """A built library, loaded with its C entry points typed."""
+def load(so: str, signatures: dict = _SIGNATURES):
+    """A built library, loaded with its C entry points typed (name ->
+    (restype, argtypes); by default the render library's)."""
     lib = ctypes.CDLL(so)
-    for name, (res, args) in _SIGNATURES.items():
+    for name, (res, args) in signatures.items():
         fn = getattr(lib, name)
         fn.restype = res
         fn.argtypes = args

@@ -349,8 +349,7 @@ def traverse_merged(table: MergedTable, ro, rd, t0, live, stop,
     (:func:`merge_hit`; on the card by the kernel's merge epilogue). The
     renderer always passes them; the walk alone, with the seven arguments,
     is there so the walk can be timed and checked on its own (the
-    benchmark's traverse roofline, ``chip_smoke.py``,
-    ``utils/kernel_ab.py``)."""
+    benchmark's traverse roofline, ``chip_smoke.py``)."""
     if ro.device.type == 'cpu':
         out = traverse_merged_ref(table, ro, rd, t0, live, stop, want_uv)
         return out if prepass is None else merge_hit(*out, prepass, active)

@@ -6,7 +6,7 @@ bf16x2 halves the slab instruction count on Hopper.
 
     python -m cuda_pathtracer_tpu_torch.tools.bf16_probe [--device cpu]
 
-:func:`slab` launches ``csrc/probe_slab.cu`` on CUDA tensors (or raises)
+:func:`slab` launches ``tools/csrc/probe_slab.cu`` on CUDA tensors (or raises)
 and takes the plain version :func:`slab_ref` for CPU tensors. Both compute
 ``make``'s kernel (``bf16_vpu_probe.py:31-52``): K chained steps of four
 products, four differences, six min/max, a compare and two selects on a
@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from ..ops import kernels
+from . import probe_kernels
 from . import timing
 
 F32, BF16, WIDEN = range(3)
@@ -43,7 +44,7 @@ OPS_PER_STEP = 17   # 4 mul, 4 sub, 6 min/max, 1 compare, 2 selects
 def slab_ref(variant: int, x, k: int):
     """The plain version: ``x`` f32 (F32) or bf16 (BF16, WIDEN); returns the
     same type."""
-    kernels.note_plain(NAME, x)
+    probe_kernels.note_plain(NAME, x)
     cdt = torch.bfloat16 if variant == BF16 else torch.float32
 
     def const(v):
@@ -67,7 +68,7 @@ def slab_ref(variant: int, x, k: int):
 
 def slab(variant: int, x, k: int):
     """:func:`slab_ref`'s contract. CPU tensors take the plain version; CUDA
-    tensors launch ``csrc/probe_slab.cu`` (or raise)."""
+    tensors launch ``tools/csrc/probe_slab.cu`` (or raise)."""
     if x.device.type == 'cpu':
         return slab_ref(variant, x, k)
     want = torch.float32 if variant == F32 else torch.bfloat16
@@ -76,11 +77,10 @@ def slab(variant: int, x, k: int):
         raise ValueError(f'{NAME}: variant {variant} on {x.numel()} elements')
     out = torch.empty_like(x)
     if x.numel():
-        err = kernels.library().cpt_probe_slab(
+        err = probe_kernels.library().cpt_probe_slab(
             variant, x.data_ptr(), out.data_ptr(), x.numel(), k,
             kernels.stream_of(x))
-        kernels.LAUNCHES[NAME] += 1
-        kernels.check(err, NAME)
+        probe_kernels.launched(err, NAME)
     return out
 
 
@@ -169,7 +169,7 @@ def hopper_question(rows):
                      f"{eps / 1e9:8.1f} Gelem-steps/s  plain {r['plain_ms']:.1f}"
                      f" ms  bound {r['bound_ms']:.3f} ms ({r['bound_by']})  "
                      f"bit-equal={r['equal']}")
-    counts = sass_counts(kernels.build())
+    counts = sass_counts(probe_kernels.build())
     for v, c in sorted(counts.items()):
         label = next(k for k, x in VARIANTS.items() if x == v)
         top = ', '.join(f'{op} {n}' for op, n in c.most_common(8))

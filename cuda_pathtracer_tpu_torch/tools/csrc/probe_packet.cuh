@@ -26,7 +26,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "traverse_common.cuh"
+// the renderer's kernel helpers, part of the probe library's build key
+#include "../../csrc/traverse_common.cuh"
 
 namespace pk {
 

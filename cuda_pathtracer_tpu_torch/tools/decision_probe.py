@@ -19,10 +19,11 @@ dynamic read, m2 the slab-like math, m3/m4 the decision word as the next
 row, m5 8 sets, m6 the row id in shared memory, m7 the rays, m8 a bit-cast
 meta word, m9 the t compare), so each construct's price is a difference.
 
-:func:`run` launches ``csrc/probe_decision.cu`` on CUDA tensors (or raises)
-and takes the plain version :func:`run_ref` for CPU tensors. Outputs come
-with the scratch the TPU kernel leaves (the decision words, ``sc``, ``t_s``)
-and a per-packet digest of every step's decision words and next row.
+:func:`run` launches ``tools/csrc/probe_decision.cu`` on CUDA tensors (or
+raises) and takes the plain version :func:`run_ref` for CPU tensors. Outputs
+come with the scratch the TPU kernel leaves (the decision words, ``sc``,
+``t_s``) and a per-packet digest of every step's decision words and next
+row.
 """
 from __future__ import annotations
 
@@ -35,6 +36,7 @@ import torch
 
 from ..ops import kernels
 from . import packet_ops as po
+from . import probe_kernels
 from . import timing
 
 NAME = 'probe_decision'
@@ -186,7 +188,7 @@ def mosaic_ref(tab, rays, steps: int, variant: str):
 
 
 def run_ref(site: str, variant: str, steps: int, ins: dict):
-    kernels.note_plain(NAME, next(iter(ins.values())))
+    probe_kernels.note_plain(NAME, next(iter(ins.values())))
     if site == 'lab2':
         return lab2_ref(ins['itab'], ins['rays'], steps, variant)
     return mosaic_ref(ins['tab'], ins['rays'], steps, variant)
@@ -198,7 +200,7 @@ _FLOAT_OUT = ('out', 't_s')
 
 def run(site: str, variant: str, steps: int, ins: dict):
     """:func:`run_ref`'s contract. CPU tensors take the plain version; CUDA
-    tensors launch ``csrc/probe_decision.cu`` (or raise): one block per
+    tensors launch ``tools/csrc/probe_decision.cu`` (or raise): one block per
     program, 128 threads on the lanes."""
     names = INPUT_ORDER[site]
     first = ins[names[0]]
@@ -222,11 +224,10 @@ def run(site: str, variant: str, steps: int, ins: dict):
             for k, s in shapes.items()}
     in_ptrs = (ctypes.c_void_p * len(names))(*(ins[k].data_ptr() for k in names))
     out_ptrs = (ctypes.c_void_p * len(outs))(*(v.data_ptr() for v in outs.values()))
-    err = kernels.library().cpt_probe_decision(
+    err = probe_kernels.library().cpt_probe_decision(
         code[0], code[1], steps, in_ptrs, out_ptrs, n, programs,
         kernels.stream_of(first))
-    kernels.LAUNCHES[NAME] += 1
-    kernels.check(err, NAME)
+    probe_kernels.launched(err, NAME)
     outs['digest'] = outs['digest'].long() & po.MASK32
     return outs
 

@@ -6,7 +6,7 @@ where the table lives (L1, the 50 MB L2, HBM)?
 
     python -m cuda_pathtracer_tpu_torch.tools.gather_probe [--device cpu]
 
-One kernel (``csrc/probe_gather.cu``) with a mode per formulation:
+One kernel (``tools/csrc/probe_gather.cu``) with a mode per formulation:
 
 ========  ======================================  ==============================
 mode      function                                TPU probe (file:line)
@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from ..ops import kernels
+from . import probe_kernels
 from . import timing
 
 ROWS, TAA0, TAA1, ROWSUM, ROWPAIR, CHASE = range(6)
@@ -52,7 +53,7 @@ NAME = 'probe_gather'
 def gather_ref(mode: int, tab, idx, steps: int = 0):
     """The plain version: ``tab`` f32 2-D, ``idx`` int32 (shapes as in the
     module's table; ``steps`` is the chain length for CHASE)."""
-    kernels.note_plain(NAME, tab)
+    probe_kernels.note_plain(NAME, tab)
     i = idx.long()
     if mode == ROWS:
         return tab[i]
@@ -110,8 +111,8 @@ def _check_shapes(mode, tab, idx):
 
 def gather(mode: int, tab, idx, steps: int = 0):
     """:func:`gather_ref`'s contract. CPU tensors take the plain version;
-    CUDA tensors launch ``csrc/probe_gather.cu`` (or raise). Indices must be
-    in range: the kernel does not check them."""
+    CUDA tensors launch ``tools/csrc/probe_gather.cu`` (or raise). Indices
+    must be in range: the kernel does not check them."""
     if tab.device.type == 'cpu':
         return gather_ref(mode, tab, idx, steps)
     kernels.require_cuda(NAME, tab, idx, dtypes=(torch.float32, torch.int32))
@@ -121,11 +122,10 @@ def gather(mode: int, tab, idx, steps: int = 0):
     if mode == ROWSUM:
         steps = idx.shape[0]
     if out.numel():
-        err = kernels.library().cpt_probe_gather(
+        err = probe_kernels.library().cpt_probe_gather(
             mode, tab.data_ptr(), idx.data_ptr(), out.data_ptr(), tab.shape[0],
             tab.shape[1], shape[0], shape[1], steps, kernels.stream_of(tab))
-        kernels.LAUNCHES[NAME] += 1
-        kernels.check(err, NAME)
+        probe_kernels.launched(err, NAME)
     return out
 
 

@@ -28,7 +28,7 @@ hemisphere directions sorted by Morton code and octant. Each variant is
 timed beside the port's ``traverse_split`` (v1, 16-lane groups) and
 ``traverse_merged`` (v2) on the same rays.
 
-:func:`walk` launches ``csrc/probe_packet_walk.cu`` on CUDA tensors (or
+:func:`walk` launches ``tools/csrc/probe_packet_walk.cu`` on CUDA tensors (or
 raises) and takes the plain version :func:`walk_ref` for CPU tensors. The
 outputs are the lab's (t, gid bits, found, 0 per packet), the stacks and
 decision words each program leaves, a per-packet digest (the decision
@@ -50,6 +50,7 @@ from ..ops import kernels
 from ..ops import traverse_packet as tp1
 from ..ops import traverse_packet2 as tp2
 from . import packet_ops as po
+from . import probe_kernels
 from . import timing
 
 NAME = 'probe_packet_walk'
@@ -274,10 +275,10 @@ def walk_ref(itab, ltab, rays, depth: int, variant: str, stats=None):
 
 def walk(itab, ltab, rays, depth: int, variant: str):
     """:func:`walk_ref`'s contract. CPU tensors take the plain version; CUDA
-    tensors launch ``csrc/probe_packet_walk.cu`` (or raise): one block of
+    tensors launch ``tools/csrc/probe_packet_walk.cu`` (or raise): one block of
     128 threads per program of 2 packets."""
     if rays.device.type == 'cpu':
-        kernels.note_plain(NAME, rays)
+        probe_kernels.note_plain(NAME, rays)
         return walk_ref(itab, ltab, rays, depth, variant)
     kernels.require_cuda(NAME, itab, ltab, rays,
                          dtypes=(torch.float32,) * 3)
@@ -300,11 +301,10 @@ def walk(itab, ltab, rays, depth: int, variant: str):
     in_ptrs = (ctypes.c_void_p * 3)(itab.data_ptr(), ltab.data_ptr(),
                                     rays.data_ptr())
     out_ptrs = (ctypes.c_void_p * len(outs))(*(v.data_ptr() for v in outs.values()))
-    err = kernels.library().cpt_probe_packet_walk(
+    err = probe_kernels.library().cpt_probe_packet_walk(
         VARIANTS.index(variant), in_ptrs, out_ptrs, itab.shape[0],
         ltab.shape[0], programs, d, kernels.stream_of(rays))
-    kernels.LAUNCHES[NAME] += 1
-    kernels.check(err, NAME)
+    probe_kernels.launched(err, NAME)
     for k in ('digest', 'lane_digest'):
         outs[k] = outs[k].long() & po.MASK32
     return outs
@@ -378,7 +378,7 @@ def compare(rows):
         stats = {}
         fn = lambda: walk_ref(tb.inner, tb.leaf, blocks, tb.depth,  # noqa: E731
                               r['variant'], stats)
-        kernels.note_plain(NAME, blocks)
+        probe_kernels.note_plain(NAME, blocks)
         if blocks.is_cuda and (r['wave'], r['variant']) == ('prim', 'v0'):
             r['plain_ms'], want = timing.cuda_ms(fn)
             n_bytes = (tb.inner.numel() + tb.leaf.numel()) * 4 \

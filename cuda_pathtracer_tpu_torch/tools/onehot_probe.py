@@ -12,7 +12,7 @@ a one-hot A fragment and (b) a direct load, and whether (a) is exact.
 Each lane runs T = 64 steps: ``row = tab[cur]``, ``acc += row[1]``,
 ``cur = (int(row[0]) * 7 + step + 1) % N``, on a table whose column 0 echoes
 the row index and column 1 holds integers up to 2^24, in f32 or rounded to
-bf16. :func:`fetch` launches ``csrc/probe_onehot.cu`` on CUDA tensors (or
+bf16. :func:`fetch` launches ``tools/csrc/probe_onehot.cu`` on CUDA tensors (or
 raises) and takes the plain version :func:`fetch_ref` for CPU tensors; both
 kernel paths give the plain version's bits.
 """
@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from ..ops import kernels
+from . import probe_kernels
 from . import timing
 
 NAME = 'probe_onehot'
@@ -77,7 +78,7 @@ def fetch_ref(table: Table, starts, steps: int = T):
     final indices (int32) and the sums of column 1 (f32), both shaped like
     ``starts``."""
     tab = table.src
-    kernels.note_plain(NAME, tab)
+    probe_kernels.note_plain(NAME, tab)
     tc = tab.to(torch.bfloat16).float() if table.bf16 else tab
     c0, c1 = tc[:, 0].contiguous(), tc[:, 1].contiguous()
     cur = starts.long()
@@ -90,8 +91,8 @@ def fetch_ref(table: Table, starts, steps: int = T):
 
 def fetch(path: str, table: Table, starts, steps: int = T):
     """:func:`fetch_ref`'s contract by the path 'mma' or 'ldg'. CPU tensors
-    take the plain version; CUDA tensors launch ``csrc/probe_onehot.cu`` (or
-    raise)."""
+    take the plain version; CUDA tensors launch
+    ``tools/csrc/probe_onehot.cu`` (or raise)."""
     if starts.device.type == 'cpu':
         return fetch_ref(table, starts, steps)
     kernels.require_cuda(NAME, starts, table.src,
@@ -102,12 +103,11 @@ def fetch(path: str, table: Table, starts, steps: int = T):
     tab = table.frag if path == 'mma' else table.rows
     cur = torch.empty_like(starts)
     acc = torch.empty(starts.shape, dtype=torch.float32, device=starts.device)
-    err = kernels.library().cpt_probe_onehot(
+    err = probe_kernels.library().cpt_probe_onehot(
         PATHS[path], int(table.bf16), tab.data_ptr(), starts.data_ptr(),
         cur.data_ptr(), acc.data_ptr(), table.n, cells, chains, steps,
         kernels.stream_of(starts))
-    kernels.LAUNCHES[NAME] += 1
-    kernels.check(err, NAME)
+    probe_kernels.launched(err, NAME)
     return cur, acc
 
 

@@ -21,7 +21,7 @@ The sites (a packet is 128 rays; the next row is scripted in all four):
   r2i  the fields read per thread straight from the row (V1) or from the row
        staged once in shared memory (V2); T in {512, 4096}.
 
-:func:`run` launches ``csrc/probe_packet_step.cu`` on CUDA tensors (or
+:func:`run` launches ``tools/csrc/probe_packet_step.cu`` on CUDA tensors (or
 raises) and takes the plain version :func:`run_ref` for CPU tensors. Every
 output is returned with the scratch the TPU kernel leaves behind (stacks,
 the t scratch, the decision words) and a per-packet digest, the wrapping
@@ -40,6 +40,7 @@ import torch
 
 from ..ops import kernels
 from . import packet_ops as po
+from . import probe_kernels
 from . import timing
 
 NAME = 'probe_packet_step'
@@ -280,7 +281,7 @@ def r2i_ref(tab, o, steps: int, variant: int):
 def run_ref(site: str, variant, steps: int, ins: dict):
     """The plain version of one site: ``ins`` as :func:`inputs` makes them
     (as tensors). Returns the dict of outputs named in ``OUTPUTS``."""
-    kernels.note_plain(NAME, next(iter(ins.values())))
+    probe_kernels.note_plain(NAME, next(iter(ins.values())))
     if site == 'r2f':
         return r2f_ref(ins['tab'], ins['ro'], ins['ird'], steps, variant)
     if site == 'r2g':
@@ -312,7 +313,8 @@ _FLOAT_OUT = ('out', 't', 't_s')
 
 def run(site: str, variant, steps: int, ins: dict):
     """:func:`run_ref`'s contract. CPU tensors take the plain version; CUDA
-    tensors launch ``csrc/probe_packet_step.cu`` on one block (or raise)."""
+    tensors launch ``tools/csrc/probe_packet_step.cu`` on one block (or
+    raise)."""
     first = ins[INPUT_ORDER[site][0]]
     if first.device.type == 'cpu':
         return run_ref(site, variant, steps, ins)
@@ -329,11 +331,10 @@ def run(site: str, variant, steps: int, ins: dict):
     rows = [ins[k].shape[0] for k in names if k.endswith('tab')]
     in_ptrs = (ctypes.c_void_p * len(names))(*(ins[k].data_ptr() for k in names))
     out_ptrs = (ctypes.c_void_p * len(outs))(*(v.data_ptr() for v in outs.values()))
-    err = kernels.library().cpt_probe_packet_step(
+    err = probe_kernels.library().cpt_probe_packet_step(
         code[0], code[1], steps, in_ptrs, out_ptrs, rows[0],
         rows[1] if len(rows) > 1 else 0, kernels.stream_of(first))
-    kernels.LAUNCHES[NAME] += 1
-    kernels.check(err, NAME)
+    probe_kernels.launched(err, NAME)
     outs['digest'] = outs['digest'].long() & po.MASK32
     return outs
 

@@ -12,9 +12,9 @@ its ms over the plain walk's visits; ROADMAP B.5).
 A step (``r2b.py:17-44``): read tile ``tab[idx]`` (8 x 128 f32), vector ops
 against an 8 x 128 ray block, a max reduce to a scalar, a push and pop of a
 64-entry stack, the scalar accumulated; the next index is scripted,
-``(idx * 5 + 1) % N``. :func:`step` launches ``csrc/probe_step.cu`` on CUDA
-tensors (or raises) and takes the plain version :func:`step_ref` for CPU
-tensors; the two are bit-equal.
+``(idx * 5 + 1) % N``. :func:`step` launches ``tools/csrc/probe_step.cu`` on
+CUDA tensors (or raises) and takes the plain version :func:`step_ref` for
+CPU tensors; the two are bit-equal.
 """
 from __future__ import annotations
 
@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from ..ops import kernels
+from . import probe_kernels
 from . import timing
 
 NAME = 'probe_step'
@@ -46,7 +47,7 @@ def step_ref(tab, rays, steps: int, flags=FULL, ni: int = 1,
     ``flags`` = (read, vec, sreduce, stack); ``ni`` chains start at indices
     0..ni-1. ``batched`` changes no value (one drain for all chains' reduces
     instead of one each). Returns f32 [8, 128]."""
-    kernels.note_plain(NAME, tab)
+    probe_kernels.note_plain(NAME, tab)
     read, vec, sreduce, stack = (bool(f) for f in flags)
     n = tab.shape[0]
     dev = tab.device
@@ -91,7 +92,7 @@ def step_ref(tab, rays, steps: int, flags=FULL, ni: int = 1,
 def step(tab, rays, steps: int, flags=FULL, ni: int = 1,
          batched: bool = False):
     """:func:`step_ref`'s contract. CPU tensors take the plain version; CUDA
-    tensors launch ``csrc/probe_step.cu`` on one block (or raise). NI > 1
+    tensors launch ``tools/csrc/probe_step.cu`` on one block (or raise). NI > 1
     takes all four flags on, as r2e does."""
     if tab.device.type == 'cpu':
         return step_ref(tab, rays, steps, flags, ni, batched)
@@ -104,11 +105,10 @@ def step(tab, rays, steps: int, flags=FULL, ni: int = 1,
         raise ValueError(f'{NAME}: ni={ni} with flags {flags}')
     code = sum(int(bool(f)) << k for k, f in enumerate(flags))
     out = torch.empty_like(rays)
-    err = kernels.library().cpt_probe_step(
+    err = probe_kernels.library().cpt_probe_step(
         tab.data_ptr(), rays.data_ptr(), out.data_ptr(), tab.shape[0], steps,
         code, ni, int(batched), kernels.stream_of(tab))
-    kernels.LAUNCHES[NAME] += 1
-    kernels.check(err, NAME)
+    probe_kernels.launched(err, NAME)
     return out
 
 

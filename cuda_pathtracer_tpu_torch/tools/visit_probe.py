@@ -27,8 +27,8 @@ from per-subpacket reductions), ``full`` (``dec_mxu`` plus the leaf path).
 The tensor-core rungs stay exact: 0/1 hit masks and counts in bf16 with an
 f32 accumulator, and an f32 row expanded by a 0/1 matrix as three bf16
 pieces summed (hi + mid) + lo (``onehot_probe``'s scheme). :func:`run`
-launches ``csrc/probe_visit.cu`` on CUDA tensors (or raises) and takes the
-plain version :func:`run_ref` for CPU tensors. Outputs come with the
+launches ``tools/csrc/probe_visit.cu`` on CUDA tensors (or raises) and takes
+the plain version :func:`run_ref` for CPU tensors. Outputs come with the
 scratch the TPU kernel leaves and a per-packet digest of every decision
 word written, since most rungs' output is blind to their work (kernel_lab3
 scripts its next row and ``full`` only scales t).
@@ -44,6 +44,7 @@ import torch
 
 from ..ops import kernels
 from . import packet_ops as po
+from . import probe_kernels
 from . import timing
 
 NAME = 'probe_visit'
@@ -284,7 +285,7 @@ def _leaf_rows(tri, O, D, t):
 
 
 def run_ref(site: str, variant: str, steps: int, ins: dict, sets: int = 8):
-    kernels.note_plain(NAME, next(iter(ins.values())))
+    probe_kernels.note_plain(NAME, next(iter(ins.values())))
     if site == 'lab3':
         return lab3_ref(ins['tab'], ins['btab'], ins['rays'], steps, variant)
     return subpacket_ref(ins['tab'], ins['rays'], steps, sets, variant)
@@ -296,7 +297,7 @@ _FLOAT_OUT = ('out', 't_s', 'rt')
 
 def run(site: str, variant: str, steps: int, ins: dict, sets: int = 8):
     """:func:`run_ref`'s contract. CPU tensors take the plain version; CUDA
-    tensors launch ``csrc/probe_visit.cu`` (or raise): one block of 128
+    tensors launch ``tools/csrc/probe_visit.cu`` (or raise): one block of 128
     threads per program."""
     names = INPUT_ORDER[site]
     first = ins[names[0]]
@@ -322,11 +323,10 @@ def run(site: str, variant: str, steps: int, ins: dict, sets: int = 8):
             for k, s in shapes.items()}
     in_ptrs = (ctypes.c_void_p * len(names))(*(ins[k].data_ptr() for k in names))
     out_ptrs = (ctypes.c_void_p * len(outs))(*(v.data_ptr() for v in outs.values()))
-    err = kernels.library().cpt_probe_visit(
+    err = probe_kernels.library().cpt_probe_visit(
         code[0], code[1], steps, in_ptrs, out_ptrs, n, programs,
         kernels.stream_of(first))
-    kernels.LAUNCHES[NAME] += 1
-    kernels.check(err, NAME)
+    probe_kernels.launched(err, NAME)
     outs['digest'] = outs['digest'].long() & po.MASK32
     return {k: outs[k] for k in outputs(site, variant)}
 

@@ -28,7 +28,8 @@ from cuda_pathtracer_tpu_torch.scene import builder, scene as scene_mod
 from cuda_pathtracer_tpu_torch.tools import (bf16_probe, decision_probe,
                                              gather_probe, lab_v1_probe,
                                              onehot_probe, packet_step_probe,
-                                             step_probe, visit_probe)
+                                             probe_kernels, step_probe,
+                                             visit_probe)
 
 pytestmark = pytest.mark.cuda
 
@@ -408,14 +409,14 @@ GATHER_CARD_CASES = [c[1:] for c in gather_probe.sites(small=True)] + [
 @pytest.mark.parametrize('case', GATHER_CARD_CASES,
                          ids=[c[0] for c in GATHER_CARD_CASES])
 def test_probe_gather_kernel_matches_plain(dev, case):
-    """Every mode of csrc/probe_gather.cu, float4 rows and widths that are
-    not a multiple of 4: bit for bit."""
+    """Every mode of tools/csrc/probe_gather.cu, float4 rows and widths that
+    are not a multiple of 4: bit for bit."""
     _, mode, tab, idx, steps = case
     t, i = torch.as_tensor(tab, device=dev), torch.as_tensor(idx, device=dev)
-    before = kernels.LAUNCHES['probe_gather']
+    before = probe_kernels.LAUNCHES['probe_gather']
     got = gather_probe.gather(mode, t, i, steps)
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES['probe_gather'] == before + 1
+    assert probe_kernels.LAUNCHES['probe_gather'] == before + 1
     want = gather_probe.gather_ref(mode, t, i, steps)
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
@@ -427,10 +428,10 @@ def test_probe_slab_kernel_matches_plain(dev, label):
     x = torch.as_tensor(bf16_probe.inputs(4), device=dev)
     if v != bf16_probe.F32:
         x = x.to(torch.bfloat16)
-    before = kernels.LAUNCHES['probe_slab']
+    before = probe_kernels.LAUNCHES['probe_slab']
     got = bf16_probe.slab(v, x, 200)
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES['probe_slab'] == before + 1
+    assert probe_kernels.LAUNCHES['probe_slab'] == before + 1
     want = bf16_probe.slab_ref(v, x, 200)
     bits = torch.int32 if v == bf16_probe.F32 else torch.int16
     assert torch.equal(got.view(bits), want.view(bits))
@@ -442,13 +443,14 @@ STEP_CARD_CASES = step_probe.cases(small=True)
 @pytest.mark.parametrize('case', STEP_CARD_CASES,
                          ids=[f'{c[0]}-{c[1]}-T{c[5]}' for c in STEP_CARD_CASES])
 def test_probe_step_kernel_matches_plain(dev, case):
-    """Every toggle and chain count of csrc/probe_step.cu: bit for bit."""
+    """Every toggle and chain count of tools/csrc/probe_step.cu: bit for
+    bit."""
     _, _, flags, ni, batched, t = case
     tab, rays = (torch.as_tensor(a, device=dev) for a in step_probe.inputs(16))
-    before = kernels.LAUNCHES['probe_step']
+    before = probe_kernels.LAUNCHES['probe_step']
     got = step_probe.step(tab, rays, t, flags, ni, batched)
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES['probe_step'] == before + 1
+    assert probe_kernels.LAUNCHES['probe_step'] == before + 1
     want = step_probe.step_ref(tab, rays, t, flags, ni, batched)
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
@@ -468,10 +470,10 @@ def test_probe_onehot_kernel_matches_plain(dev, path, case):
     table = onehot_probe.Table(torch.as_tensor(tab, device=dev), bf16)
     starts = onehot_probe.starts_of(site, torch.as_tensor(idx, device=dev),
                                     cells, chains)
-    before = kernels.LAUNCHES['probe_onehot']
+    before = probe_kernels.LAUNCHES['probe_onehot']
     cur, acc = onehot_probe.fetch(path, table, starts, 16)
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES['probe_onehot'] == before + 1
+    assert probe_kernels.LAUNCHES['probe_onehot'] == before + 1
     pcur, pacc = onehot_probe.fetch_ref(table, starts, 16)
     assert torch.equal(cur, pcur)
     assert torch.equal(acc.view(torch.int32), pacc.view(torch.int32))
@@ -497,15 +499,15 @@ def _packet_inputs(mod, site, variant, dev):
                          ids=[f'{m.NAME}-{c[0]}-{c[1]}-T{c[2]}'
                               for m, c in PACKET_CARD_CASES])
 def test_probe_packet_kernels_match_plain(dev, mod, case):
-    """csrc/probe_packet_step.cu, probe_decision.cu and probe_visit.cu, every
-    site and variant at the CPU tests' sizes: outputs, scratch and digests
-    bit for bit."""
+    """tools/csrc/probe_packet_step.cu, probe_decision.cu and probe_visit.cu,
+    every site and variant at the CPU tests' sizes: outputs, scratch and
+    digests bit for bit."""
     site, variant, t = case[:3]
     ins = _packet_inputs(mod, site, variant, dev)
-    before = kernels.LAUNCHES[mod.NAME]
+    before = probe_kernels.LAUNCHES[mod.NAME]
     got = mod.run(site, variant, t, ins, *case[3:])
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES[mod.NAME] == before + 1
+    assert probe_kernels.LAUNCHES[mod.NAME] == before + 1
     want = mod.run_ref(site, variant, t, ins, *case[3:])
     assert got.keys() == want.keys()
     for k in got:
@@ -522,14 +524,14 @@ def lab_setup(dev):
 
 @pytest.mark.parametrize('wave,variant', lab_v1_probe.cases())
 def test_probe_packet_walk_matches_plain(dev, lab_setup, wave, variant):
-    """csrc/probe_packet_walk.cu, every hook on both small waves: outputs,
-    stacks, words and both digests bit for bit."""
+    """tools/csrc/probe_packet_walk.cu, every hook on both small waves:
+    outputs, stacks, words and both digests bit for bit."""
     tb = lab_setup['tables']
     blocks = lab_setup['blocks'][wave]
-    before = kernels.LAUNCHES['probe_packet_walk']
+    before = probe_kernels.LAUNCHES['probe_packet_walk']
     got = lab_v1_probe.walk(tb.inner, tb.leaf, blocks, tb.depth, variant)
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES['probe_packet_walk'] == before + 1
+    assert probe_kernels.LAUNCHES['probe_packet_walk'] == before + 1
     want = lab_v1_probe.walk_ref(tb.inner, tb.leaf, blocks, tb.depth, variant)
     for k in got:
         a, b = got[k], want[k]
