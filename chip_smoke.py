@@ -60,7 +60,12 @@ inputs (for the traversals, the node and leaf visits of the plain walks).
    of each is shaded again by the two ``whitted_shade`` kernels and by the
    plain route on the same rays and hits, each lane its own pixel: shadow
    rays, contributions, children and shadow-ray counts bit-equal, each
-   kernel timed with its bound by bytes (``hold_shading``); v1 and v2 must
+   kernel timed with its bound by bytes (``hold_shading``), and each
+   frame's lanes are formed again by the ``whitted_lanes`` kernels and by
+   the plain versions on the same inputs: primary rays and every
+   compaction's lanes, order and count dropped bit-equal, each timed with
+   its bound by bytes (``hold_lanes``; on sibenik the block and the
+   library sort are also timed across n, ``sweep_sorts``); v1 and v2 must
    agree on 99.5% of the pixels, and so must a 64x48 depth-7 outside frame
    on the card and on the CPU. (b) ``--serve <a free port> --frames 30`` on
    outside at 640x480, in path mode and in ray mode, while a thread sends
@@ -212,6 +217,8 @@ KERNELS = {
                           'tools/kernel_lab.py:256'),
     'prepass': ('cuda_pathtracer_tpu_torch/csrc/traverse.cu (prepass_kernel)',
                 'none (ops/traverse.py::_primitives_prepass)'),
+    'whitted_lanes': ('cuda_pathtracer_tpu_torch/csrc/whitted_lanes.cu',
+                      'none (models/raytracer.py::_rays_plain, _compact)'),
 }
 # the kernels each path must launch
 SIBENIK_KERNELS = ('traverse', 'guiding_scatter', 'blur')
@@ -251,6 +258,8 @@ LEAF_OPS = 12 * 56
 # rate).
 SHADE_PRE_BYTES, SHADE_PRE_LIGHT_BYTES = 37, 29
 SHADE_POST_BYTES, SHADE_POST_LIGHT_BYTES = 37 + 20 + 24 + 90, 1
+# a Whitted lane: origin, direction and weight (3 x 12 bytes), pixel (8)
+LANE_BYTES = 44
 # bytes a ray the sphere/plane prepass (csrc/traverse.cu's prepass_kernel)
 # must move through HBM: it reads the ray (24) and, where given, t_max (4),
 # active and stop_on_hit (1 each), and writes t, prim_type, prim_id (12),
@@ -1857,17 +1866,171 @@ def hold_shading(rt, cam, label: str, failures: list) -> dict:
     return total
 
 
+def _lanes_bytes(m: int, n: int, kept: int, ordered: bool) -> int:
+    """A compaction's bytes: each input byte read once (the m active flags,
+    the kept lanes' 44 bytes, the active lanes' 12 bytes of weight when
+    ordered), each output byte written once, and the keys (8 bytes a lane)
+    written and read once."""
+    return m + 2 * LANE_BYTES * kept + (n * (12 + 16) if ordered else 0)
+
+
+def sweep_sorts(failures: list) -> dict:
+    """Times the two sorts of an ordered compaction across n (keys of n
+    lanes all active, weights full of ties; the sort and the gather of all
+    n lanes, 10 calls behind the sleep pre-roll): the block sort up to its
+    capacity (``sort_threshold``), the library sort and its gather
+    everywhere. Returns {n: (block ms or None, library ms)}; the threshold
+    rests on the block sort being the faster up to its capacity, so a
+    crossover below it is a failure."""
+    import torch
+    from cuda_pathtracer_tpu_torch.ops import whitted_lanes as wl
+    cap = wl.sort_threshold('cuda')
+    rs = __import__('numpy').random.RandomState(11)
+    out = {}
+    for n in (256, 512, 1024, 2048, 3072, 4096, 6144, 8192, 12288, 16384,
+              24576, 32768, 65536):
+        w = torch.from_numpy(rs.choice([0.25, 0.5, 0.75], size=(n, 3)).astype(
+            'float32')).cuda()
+        lanes = (torch.rand(n, 3, device='cuda'),
+                 torch.rand(n, 3, device='cuda'), w,
+                 torch.arange(n, device='cuda'))
+        count, keys = wl.scan(*lanes, torch.ones(n, dtype=torch.bool,
+                                                 device='cuda'), True)
+        got = {}
+        for path in ('block', 'library'):
+            if path == 'block' and n > cap:
+                got[path] = None
+                continue
+            got[path], res = cuda_ms(lambda: wl.sorted_lanes(
+                keys, n, n, lanes, path), reps=10, warmup=1, preroll=True)
+            want = lanes[3][torch.argsort(-torch.maximum(torch.maximum(
+                w[:, 0], w[:, 1]), w[:, 2]), stable=True)]
+            if not torch.equal(res[3], want):
+                failures.append(f'sort sweep n={n} {path}: wrong order')
+        out[n] = (got['block'], got['library'])
+        b = 'n/a' if got['block'] is None else f'{got["block"]:.4f}'
+        log(f'  sort sweep n={n}: block {b} ms, library '
+            f'{got["library"]:.4f} ms')
+    slower = [n for n, (b, lib) in out.items() if b is not None and b > lib]
+    log(f'  sort crossover: the block sort is slower from n={min(slower)}'
+        if slower else f'  sort crossover: the block sort is faster at every '
+        f'n up to its capacity, the threshold ({cap})')
+    if slower:
+        failures.append(f'the block sort is slower than the library sort at '
+                        f'n={slower}, under the threshold {cap}')
+    return out
+
+
+def hold_lanes(rt, cam, label: str, failures: list) -> dict:
+    """Forms every level of one depth-7 frame of ``rt`` again through the
+    ``whitted_lanes`` kernels and through the plain versions on the same
+    inputs: the primary rays (``raytracer._rays_plain``) and each
+    compaction of the frame's children, recorded as the frame ran
+    (``raytracer._compact``). Every output must be bit-equal, with the same
+    lanes, order and count dropped. Each kernel route is timed over 10
+    calls with CUDA events behind the sleep pre-roll (the rays; the
+    compaction's two launches, then its sort, with no read-back), the plain
+    versions over 3 (their waits for the card let the host's issue into the
+    time). Returns the frame's sums: kernel ms, plain ms, bytes
+    (``_lanes_bytes``), the sorts taken and the largest difference."""
+    import torch
+    from cuda_pathtracer_tpu_torch.models import raytracer as rt_mod
+    from cuda_pathtracer_tpu_torch.ops import whitted_lanes as wl
+    calls = []
+    orig = wl.compact
+
+    def spy(*a):
+        calls.append(tuple(x.clone() if hasattr(x, 'clone') else x
+                           for x in a))
+        return orig(*a)
+    with patched(wl, 'compact', spy):
+        rt.render(cam, should_clear=False)
+    total = dict(ms=0.0, plain_ms=0.0, bytes=0.0, err=0, sorts=[])
+
+    def same(a, b):
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        return a.shape == b.shape and torch.equal(a, b)
+
+    W, H = rt.width, rt.height
+    got = wl.primary_rays(cam, W, H, 7)
+    want = rt_mod._rays_plain(cam, W, H, 7)
+    diff = [f for f, x, y in zip(('origin', 'direction', 'weight', 'pixel',
+                                  'frame', 'shadow'), got, want)
+            if not same(x, y.contiguous())]
+    ms, _ = cuda_ms(lambda: wl.primary_rays(cam, W, H, 7), reps=10,
+                    preroll=True)
+    plain_ms, _ = cuda_ms(lambda: rt_mod._rays_plain(cam, W, H, 7), reps=3,
+                          preroll=True)
+    b = W * H * (4 * 12 + 8)
+    log(f'  lanes of {label}: primary rays {W}x{H} {ms:.4f} ms (bound '
+        f'{bound(b, 0)[0]:.4f}), plain {plain_ms:.3f} ms; differ from plain: '
+        f'{diff or "nothing"}')
+    if diff:
+        failures.append(f'whitted {label} primary rays differ: {diff}')
+    total['ms'] += ms
+    total['plain_ms'] += plain_ms
+    total['bytes'] += b
+    for depth, (ro, rd, w, pixel, active, cap, ordered) in enumerate(calls,
+                                                                     1):
+        lanes = (ro, rd, w, pixel)
+        (k_lanes, k_dropped, sort) = wl.compact(*lanes, active, cap, ordered)
+        (p_lanes, p_dropped, _) = rt_mod._compact(*lanes, active, cap,
+                                                  ordered)
+        diff = [f for f, x, y in zip(('origin', 'direction', 'weight',
+                                      'pixel'), k_lanes, p_lanes)
+                if not same(x, y)]
+        if k_dropped != p_dropped:
+            diff.append(f'dropped {k_dropped} vs {p_dropped}')
+        m, kept = active.shape[0], k_lanes[0].shape[0]
+        n = kept + k_dropped
+        scan_ms, (count, keys) = cuda_ms(lambda: wl.scan(*lanes, active,
+                                                         ordered),
+                                         reps=10, preroll=True)
+        sort_ms = 0.0
+        if sort in ('block', 'library'):
+            sort_ms, _ = cuda_ms(lambda: wl.sorted_lanes(keys, n, kept, lanes,
+                                                         sort),
+                                 reps=10, preroll=True)
+        plain_ms, _ = cuda_ms(lambda: rt_mod._compact(*lanes, active, cap,
+                                                      ordered),
+                              reps=3, preroll=True)
+        b = _lanes_bytes(m, n, kept, ordered)
+        log(f'  lanes of {label}, level {depth}: {m} children, {n} active, '
+            f'{kept} kept, sort {sort} | scan {scan_ms:.4f} ms + sort '
+            f'{sort_ms:.4f} ms (bound {bound(b, 0)[0]:.4f}), plain '
+            f'{plain_ms:.3f} ms; differ from plain: {diff or "nothing"}')
+        if diff:
+            failures.append(f'whitted {label} compaction into level {depth}: '
+                            f'kernels differ from the plain version: {diff}')
+        total['ms'] += scan_ms + sort_ms
+        total['plain_ms'] += plain_ms
+        total['bytes'] += b
+        total['sorts'].append(sort)
+        total['err'] = max(total['err'], len(diff))
+    if not calls:
+        failures.append(f'whitted {label}: no compaction recorded')
+    b = bound(total['bytes'], 0)[0]
+    log(f'  lanes of {label}, {len(calls)} compactions ({total["sorts"]}): '
+        f'kernels {total["ms"]:.4f} ms, bound {b:.4f} ms (share '
+        f'{b / total["ms"]:.3f}), plain {total["plain_ms"]:.3f} ms')
+    return total
+
+
 def run_whitted(cli_main, sibenik, tmp: str, failures: list) -> dict:
     """Phase 3a: the Whitted raytracer at 1920x1080. Sibenik (v2): a clearing
     frame (depth 2) and a converged one (depth 7). The CLI's ``--mode ray``
     on outside at t = 5 (one depth-2 frame after the refit) with
     ``PACKET_V1`` on and then off, then one depth-7 outside frame on each
     route; each depth-7 frame's levels are shaded again by the
-    ``whitted_shade`` kernels and by the plain route (``hold_shading``);
-    v1 and v2 must agree, and so must a 64x48 depth-7 outside frame on the
-    card and on the CPU; on every route the prepass kernel launches once per
-    walk. Returns ({route: launches}, sibenik's shading totals from
-    ``hold_shading``, sibenik's prepass totals from ``hold_level0``)."""
+    ``whitted_shade`` kernels and by the plain route (``hold_shading``),
+    and its lanes formed again by the ``whitted_lanes`` kernels and by the
+    plain versions (``hold_lanes``; on sibenik also the sorts' sweep,
+    ``sweep_sorts``); v1 and v2 must agree, and so must a 64x48 depth-7
+    outside frame on the card and on the CPU; on every route the prepass
+    kernel launches once per walk. Returns ({route: launches}, sibenik's
+    shading totals from ``hold_shading``, its prepass totals from
+    ``hold_level0``, its lanes' totals from ``hold_lanes``)."""
     import torch
     from cuda_pathtracer_tpu_torch.core.camera import Camera
     from cuda_pathtracer_tpu_torch.models import raytracer as rt_mod
@@ -1886,10 +2049,13 @@ def run_whitted(cli_main, sibenik, tmp: str, failures: list) -> dict:
     counts['sibenik'] = dict(kernels.LAUNCHES)
     if kernels.LAUNCHES['traverse'] <= 0 or kernels.LAUNCHES[
             'traverse_packet'] or kernels.LAUNCHES['whitted_shade'] <= 0 \
+            or kernels.LAUNCHES['whitted_lanes'] <= 0 \
             or kernels.LAUNCHES['prepass'] != kernels.LAUNCHES['traverse']:
         failures.append(f'whitted sibenik: launches {kernels.LAUNCHES}')
     prepass = hold_level0(rt, cam, 'sibenik v2 depth 7', failures)
     shading = hold_shading(rt, cam, 'sibenik v2 depth 7', failures)
+    lanes = hold_lanes(rt, cam, 'sibenik v2 depth 7', failures)
+    lanes['sweep'] = sweep_sorts(failures)
     del rt
 
     frames = {}
@@ -1920,7 +2086,7 @@ def run_whitted(cli_main, sibenik, tmp: str, failures: list) -> dict:
                 continue
             rt = app.returned[0]
             if got[routes[tag]] <= 0 or got[routes['v2' if v1 else 'v1']] \
-                    or got['whitted_shade'] <= 0 \
+                    or got['whitted_shade'] <= 0 or got['whitted_lanes'] <= 0 \
                     or got['prepass'] != got[routes[tag]]:
                 failures.append(f'cli --mode ray {tag}: launches {got}')
             if any(kernels.PLAIN_ON_CUDA.values()):
@@ -1939,6 +2105,7 @@ def run_whitted(cli_main, sibenik, tmp: str, failures: list) -> dict:
             frames[(tag, 7)] = f['frame']
             hold_level0(rt, out_cam, f'outside {tag} depth 7', failures)
             hold_shading(rt, out_cam, f'outside {tag} depth 7', failures)
+            hold_lanes(rt, out_cam, f'outside {tag} depth 7', failures)
             del rt, app
         finally:
             dispatch_mod.PACKET_V1 = False
@@ -1966,7 +2133,7 @@ def run_whitted(cli_main, sibenik, tmp: str, failures: list) -> dict:
         f'agree')
     if share < 0.995:
         failures.append(f'whitted 64x48: card vs CPU only {share:.6f}')
-    return counts, shading, prepass
+    return counts, shading, prepass, lanes
 
 
 def _poke(port: int, stop, seen: dict):
@@ -2586,13 +2753,22 @@ def main() -> int:
     # ---- phase 3: the Whitted raytracer, the real-time loops, checkpoints
     with tempfile.TemporaryDirectory() as tmp:
         t = time.perf_counter()
-        whitted, shading, pre = run_whitted(cli_main, scene, tmp, failures)
+        whitted, shading, pre, lanes = run_whitted(cli_main, scene, tmp,
+                                                   failures)
         launches['whitted_shade'] = whitted['sibenik']['whitted_shade']
         results['whitted_shade'] = dict(
             max_abs_err=shading['err'], ms=shading['ms'],
             plain_ms=shading['plain_ms'], library_ms=None)
         results['whitted_shade']['bound_ms'], \
             results['whitted_shade']['bound_by'] = bound(shading['bytes'], 0)
+        # the primary rays and compactions of sibenik's depth-7 frame
+        launches['whitted_lanes'] = whitted['sibenik']['whitted_lanes']
+        results['whitted_lanes'] = dict(
+            max_abs_err=lanes['err'], ms=lanes['ms'],
+            plain_ms=lanes['plain_ms'], library_ms=None, sorts=lanes['sorts'],
+            sort_sweep_ms={str(n): v for n, v in lanes['sweep'].items()})
+        results['whitted_lanes']['bound_ms'], \
+            results['whitted_lanes']['bound_by'] = bound(lanes['bytes'], 0)
         # the prepass on sibenik's level-0 closest-hit and shadow waves
         launches['prepass'] = whitted['sibenik']['prepass']
         results['prepass'] = dict(max_abs_err=pre['err'], ms=pre['ms'],

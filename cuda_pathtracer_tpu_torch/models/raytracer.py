@@ -22,7 +22,10 @@ A level is shaded by :func:`_shade_level`, the plain version, on the CPU,
 and on the card by two kernels around its traces
 (:func:`_shade_level_kernels`, ``ops/whitted_shade.py``), which give the
 plain version's children and shadow rays bit for bit; the frame's sums
-differ only by the order of the card's atomic adds.
+differ only by the order of the card's atomic adds. The levels' lanes are
+formed by :func:`_rays_plain` and :func:`_compact` on the CPU, and on the
+card by ``ops/whitted_lanes.py``'s kernels, which give the same lanes bit
+for bit.
 """
 from __future__ import annotations
 
@@ -34,7 +37,7 @@ from . import film
 from .shading import _f3, _reflect_ray, _refract
 from ..core import camera as cam_mod
 from ..core import vecmath as vm
-from ..ops import kernels, whitted_shade
+from ..ops import kernels, whitted_lanes, whitted_shade
 from ..ops.dispatch import trace
 from ..ops.traverse import PRIM_PLANE, PRIM_SPHERE
 from ..constants import EPS
@@ -207,6 +210,23 @@ def _shade_level_kernels(tables, scene, dyn, ro, rd, weight, pixel, out,
                                     shadow)
 
 
+def _rays_plain(camera, width: int, height: int, max_depth: int):
+    """Level 0 of the frame, plain: one ray per pixel from
+    ``camera.generate_rays_simple``. Returns (origin, direction, weight
+    f32[B, 3], pixel i64[B], the frame f32[B, 3] and the levels' shadow-ray
+    counts i64[max_depth], both zeroed)."""
+    kernels.note_plain('whitted_lanes', camera.eye)
+    dev = camera.eye.device
+    B = width * height
+    lanes = torch.arange(B, dtype=torch.int64, device=dev)
+    ro, rd = cam_mod.generate_rays_simple(camera, lanes % width,
+                                          lanes // width, width, height)
+    return (ro.contiguous(), rd,
+            torch.ones((B, 3), dtype=torch.float32, device=dev), lanes,
+            torch.zeros((B, 3), dtype=torch.float32, device=dev),
+            torch.zeros(max_depth, dtype=torch.int64, device=dev))
+
+
 def _compact(ro, rd, w, pixel, active, cap: int, ordered: bool):
     """The active lanes, at most ``cap`` of them. ``ordered`` says that the
     JAX package's level was longer than ``cap`` and so went through its
@@ -214,7 +234,9 @@ def _compact(ro, rd, w, pixel, active, cap: int, ordered: bool):
     scoring -1: the active lanes then come in a stable sort by falling
     weight, cut to ``cap``, which keeps the lanes of the JAX package in its
     order (sibling lanes often tie). Otherwise they keep their order. Returns
-    ((ro, rd, w, pixel), active lanes dropped)."""
+    ((ro, rd, w, pixel), active lanes dropped, the sort: ``library`` when
+    ``ordered``, else ``none``)."""
+    kernels.note_plain('whitted_lanes', active)
     with span('sync.compact'):
         idx = torch.nonzero(active).squeeze(1)
     n = idx.shape[0]
@@ -222,7 +244,7 @@ def _compact(ro, rd, w, pixel, active, cap: int, ordered: bool):
         score = vm.max_comp(w.index_select(0, idx))
         idx = idx.index_select(0, torch.argsort(-score, stable=True)[:cap])
     return tuple(a.index_select(0, idx) for a in (ro, rd, w, pixel)), \
-        max(n - cap, 0)
+        max(n - cap, 0), 'library' if ordered else 'none'
 
 
 def render_whitted(scene, dyn, camera, *, width: int, height: int,
@@ -237,29 +259,28 @@ def render_whitted(scene, dyn, camera, *, width: int, height: int,
     the cap dropped when the level was formed) and ``shadow`` (shadow rays
     traced).
 
-    Each level runs :func:`_shade_level_kernels` on the card, with the
-    scene's tables gathered once for the frame, and :func:`_level_plain`
-    elsewhere. Spans (``utils/profiling.py``): ``whitted.rays``, then per
-    depth ``whitted.level`` (attributes ``depth``, ``lanes``: the lanes
-    traced, ``dropped``, ``ordered``: whether the level was formed by the
-    weight-priority compaction) around ``trace.closest``, ``trace.shadow``
-    per light and ``whitted.compact``."""
-    dev = camera.eye.device
+    On the card the lanes come from ``ops/whitted_lanes.py`` (the primary
+    rays, then each compaction) and each level runs
+    :func:`_shade_level_kernels`, with the scene's tables gathered once for
+    the frame; elsewhere :func:`_rays_plain`, :func:`_compact` and
+    :func:`_level_plain`. Spans (``utils/profiling.py``): ``whitted.rays``,
+    then per depth ``whitted.level`` (attributes ``depth``, ``lanes``: the
+    lanes traced, ``dropped``, ``ordered``: whether the level was formed by
+    the weight-priority compaction) around ``trace.closest``,
+    ``trace.shadow`` per light and ``whitted.compact`` (attribute ``sort``:
+    ``none``, ``block`` or ``library``)."""
     B = width * height
+    if camera.eye.device.type == 'cuda':
+        rays, compact = whitted_lanes.primary_rays, whitted_lanes.compact
+        level = functools.partial(_shade_level_kernels,
+                                  whitted_shade.tables(scene, dyn))
+    else:
+        rays, compact, level = _rays_plain, _compact, _level_plain
     with span('whitted.rays'):
-        lanes = torch.arange(B, dtype=torch.int64, device=dev)
-        ro, rd = cam_mod.generate_rays_simple(camera, lanes % width,
-                                              lanes // width, width, height)
-        ro = ro.contiguous()
-        out = torch.zeros((B, 3), dtype=torch.float32, device=dev)
-        weight = torch.ones((B, 3), dtype=torch.float32, device=dev)
-        shadow = torch.zeros(max_depth, dtype=torch.int64, device=dev)
-    pixel = lanes
+        ro, rd, weight, pixel, out, shadow = rays(camera, width, height,
+                                                  max_depth)
     cap = 2 * B
     level_lanes, dropped, ordered = B, 0, False
-    level = (functools.partial(_shade_level_kernels,
-                               whitted_shade.tables(scene, dyn))
-             if dev.type == 'cuda' else _level_plain)
 
     for depth in range(max_depth):
         n = ro.shape[0]
@@ -281,9 +302,11 @@ def render_whitted(scene, dyn, camera, *, width: int, height: int,
             if children is None:
                 dropped = 0
                 continue
-            with span('whitted.compact'):
-                (ro, rd, weight, pixel), dropped = _compact(*children, cap,
-                                                            ordered)
+            with span('whitted.compact') as cs:
+                (ro, rd, weight, pixel), dropped, sort = compact(
+                    *children, cap, ordered)
+                if cs is not None:
+                    cs.attrs['sort'] = sort
     if stats is not None:
         for s in stats:
             s['shadow'] = int(s['shadow'])

@@ -41,8 +41,10 @@ NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-O3', '-std=c++17',
               '-Xcompiler', '-fPIC', '-fmad=false', '-Xptxas', '-v']
 
 NAMES = ('traverse', 'guiding_scatter', 'blur', 'traverse_packet',
-         'whitted_shade', 'prepass')
-LAUNCHES = dict.fromkeys(NAMES, 0)
+         'whitted_shade', 'prepass', 'whitted_lanes')
+# which sort each ordered Whitted compaction took (ops/whitted_lanes.py)
+SORT_PATHS = ('whitted_sort_block', 'whitted_sort_library')
+LAUNCHES = dict.fromkeys(NAMES + SORT_PATHS, 0)
 PLAIN_ON_CUDA = dict.fromkeys(NAMES, 0)
 
 _P = ctypes.c_void_p
@@ -68,6 +70,23 @@ _SIGNATURES = {
     # pointers, lanes, outputs..., stream)
     'cpt_whitted_shade_pre': (_I, [_P, _P, _P, _I, _P, _P, _P, _P, _P]),
     'cpt_whitted_shade_post': (_I, [_P, _P, _P, _I] + [_P] * 11),
+    # (eye, view_dir, d, width, height, width / height, 2 width / height,
+    # max_depth, outputs..., stream)
+    'cpt_whitted_primary_rays': (_I, [_P, _P, _P, _I, _I, _F, _F, _I]
+                                 + [_P] * 7),
+    'cpt_whitted_lanes_tiles': (_I, [_I]),
+    # (active, lanes, tile counts, stream)
+    'cpt_whitted_lanes_count': (_I, [_P, _I, _P, _P]),
+    # (active, lanes, tile counts, ro, rd, w, pixel, their packed rows or
+    # nulls, keys or null, count, stream)
+    'cpt_whitted_lanes_scatter': (_I, [_P, _I] + [_P] * 11),
+    'cpt_whitted_lanes_read_count': (_I, [_P, _P, _P]),
+    'cpt_whitted_sort_capacity': (_I, []),
+    # (keys, n, kept, rows a block gathers, ro, rd, w, pixel, outputs...,
+    # stream)
+    'cpt_whitted_sort_gather': (_I, [_P, _I, _I, _I] + [_P] * 9),
+    # (sorted keys, kept, ro, rd, w, pixel, outputs..., stream)
+    'cpt_whitted_gather': (_I, [_P, _I] + [_P] * 9),
     'cpt_traverse_max_stack': (_I, []),
     'cpt_traverse_packet_max_stack': (_I, []),
     'cpt_error_string': (ctypes.c_char_p, [_I]),
@@ -77,9 +96,9 @@ _lib = None
 
 
 def reset_counts():
-    for n in NAMES:
-        LAUNCHES[n] = 0
-        PLAIN_ON_CUDA[n] = 0
+    for counts in (LAUNCHES, PLAIN_ON_CUDA):
+        for n in counts:
+            counts[n] = 0
 
 
 def note_plain(name: str, tensor):

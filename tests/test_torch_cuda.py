@@ -19,7 +19,8 @@ from cuda_pathtracer_tpu_torch.models import pathtracer as ptm
 from cuda_pathtracer_tpu_torch.models import raytracer as trt
 from cuda_pathtracer_tpu_torch.models.pathtracer import Pathtracer
 from cuda_pathtracer_tpu_torch.ops import (blur, dispatch, guiding_scatter,
-                                           kernels, whitted_shade)
+                                           kernels, whitted_lanes,
+                                           whitted_shade)
 from cuda_pathtracer_tpu_torch.ops import traverse_packet as tp1
 from cuda_pathtracer_tpu_torch.ops import traverse_packet2 as tp2
 from cuda_pathtracer_tpu_torch.ops.traverse import (_primitives_prepass,
@@ -714,14 +715,32 @@ def test_whitted_shade_kernels_match_plain(dev, whitted_scenes, name):
         assert arr.sphere_pos.shape[0] == arr.plane_normal.shape[0] == 0
 
 
+def _lanes_launches(stats, threshold: int) -> tuple:
+    """The launches of ``whitted_lanes`` a depth-7 frame with these stats
+    takes (the primary rays, then two a compaction and one a sort whose
+    level kept lanes), and its sorts in a block and in the library: an
+    ordered level (depth 2 on) of at most ``threshold`` active lanes sorts
+    in a block."""
+    sorted_n = [s['active'] + s['dropped'] for d, s in enumerate(stats)
+                if d >= 2 and stats[d - 1]['active'] and s['active']]
+    block = sum(1 for n in sorted_n if n <= threshold)
+    compactions = sum(1 for s in stats[:-1] if s['active'])
+    return 1 + 2 * compactions + len(sorted_n), block, len(sorted_n) - block
+
+
 @pytest.mark.parametrize('name', ['sibenik', 'glass_room'])
 def test_whitted_frame_kernels_match_plain_route(dev, whitted_scenes, name):
     """A depth-7 frame on the card through the kernels and through the
-    plain route: the same stats, and the frame equal up to the order of the
-    atomic adds into a pixel. Its contributions are non-negative, so two
-    orders of summing k of them differ by at most 2 (k - 1) u of the sum
-    (u = 2^-24); a pixel sums at most 2^7 - 1 lanes: rtol 1.6e-5. The
-    kernels launch twice a level that has lanes, and no plain version runs."""
+    plain route (``_rays_plain``, ``_level_plain``, ``_compact``): the same
+    stats, and the frame equal up to the order of the atomic adds into a
+    pixel. Its contributions are non-negative, so two orders of summing k
+    of them differ by at most 2 (k - 1) u of the sum (u = 2^-24); a pixel
+    sums at most 2^7 - 1 lanes: rtol 1.6e-5. The kernels launch twice a
+    level that has lanes, the lanes' kernels once for the rays, twice a
+    compaction and once a sort (in a block up to ``sort_threshold``
+    lanes, else in the library), and no plain version runs. The glass
+    room's cut levels sort in the library, some of sibenik's in one
+    block."""
     arr, dyn, cam, W, H = whitted_scenes(name)
     frames, stats = [], []
     for route in ('kernels', 'plain'):
@@ -730,19 +749,149 @@ def test_whitted_frame_kernels_match_plain_route(dev, whitted_scenes, name):
             if route == 'plain':
                 mp.setattr(trt, '_shade_level_kernels',
                            lambda tables, *a: trt._level_plain(*a))
-            launches = kernels.LAUNCHES['whitted_shade']
-            plain = kernels.PLAIN_ON_CUDA['whitted_shade']
+                mp.setattr(whitted_lanes, 'primary_rays', trt._rays_plain)
+                mp.setattr(whitted_lanes, 'compact', trt._compact)
+            before = dict(kernels.LAUNCHES)
+            plain = dict(kernels.PLAIN_ON_CUDA)
             frames.append(trt.render_whitted(arr, dyn, cam, width=W, height=H,
                                              max_depth=7, stats=stats[-1]))
         live = sum(1 for s in stats[-1] if s['active'])
+        ran = {k: kernels.LAUNCHES[k] - before[k] for k in before}
+        plain_ran = {k: kernels.PLAIN_ON_CUDA[k] - plain[k] for k in plain}
         if route == 'kernels':
-            assert kernels.LAUNCHES['whitted_shade'] - launches == 2 * live
-            assert kernels.PLAIN_ON_CUDA['whitted_shade'] == plain
+            lanes, block, library = _lanes_launches(
+                stats[-1], whitted_lanes.sort_threshold(dev))
+            assert ran['whitted_shade'] == 2 * live
+            assert ran['whitted_lanes'] == lanes
+            assert (ran['whitted_sort_block'],
+                    ran['whitted_sort_library']) == (block, library)
+            assert library if name == 'glass_room' else block
+            assert not any(plain_ran.values())
         else:
-            assert kernels.PLAIN_ON_CUDA['whitted_shade'] - plain == live
+            assert plain_ran['whitted_shade'] == live
+            assert plain_ran['whitted_lanes'] == 1 + sum(
+                1 for s in stats[-1][:-1] if s['active'])
+            assert ran['whitted_lanes'] == 0
     assert stats[0] == stats[1]
+    assert max(s['dropped'] for s in stats[0]) > 0 or name != 'glass_room'
     assert (frames[0] >= 0).all() and torch.isfinite(frames[0]).all()
     assert torch.allclose(frames[0], frames[1], rtol=1.6e-5, atol=0.0)
+
+
+# cameras of the primary rays: bench.py's nave, the glass room's, and a
+# view tilted on every axis
+RAY_CAMERAS = {'nave': SIBENIK_CAMERA, 'glass_room': GLASS_CAMERA,
+               'tilted': dict(eye=[1.0, 2.0, -3.0],
+                              view_dir=[0.37, -0.41, 0.83], d=1.3,
+                              focal_length=5.0, aperture=0.0)}
+
+
+@pytest.mark.parametrize('size', [(640, 480), (1920, 1080)],
+                         ids=['480p', '1080p'])
+@pytest.mark.parametrize('camera', list(RAY_CAMERAS))
+def test_primary_rays_match_plain(dev, camera, size):
+    """``whitted_lanes.primary_rays`` gives ``_rays_plain``'s level 0 on
+    the card (``generate_rays_simple``'s origins and directions, the
+    weights, pixels and zeroed sums) bit for bit, in one launch."""
+    W, H = size
+    cam = Camera.create(**RAY_CAMERAS[camera], device=dev)
+    before = kernels.LAUNCHES['whitted_lanes']
+    got = whitted_lanes.primary_rays(cam, W, H, 7)
+    assert kernels.LAUNCHES['whitted_lanes'] - before == 1
+    want = trt._rays_plain(cam, W, H, 7)
+    for name, g, x in zip(('origin', 'direction', 'weight', 'pixel', 'frame',
+                           'shadow'), got, want):
+        assert _same(g, x.contiguous()), name
+
+
+def _compact_inputs(dev, m, n, values=None, seed=0):
+    """Children of m lanes of which exactly n are active (seeded): random
+    rays and pixels, weights uniform in (0, 1) or drawn from ``values``
+    (so that most lanes tie)."""
+    rs = np.random.RandomState(seed)
+    w = (rs.rand(m, 3) if values is None else
+         rs.choice(values, size=(m, 3))).astype(np.float32)
+    active = np.zeros(m, bool)
+    active[rs.choice(m, n, replace=False)] = True
+    return tuple(torch.from_numpy(a).to(dev) for a in (
+        rs.rand(m, 3).astype(np.float32), rs.rand(m, 3).astype(np.float32),
+        w, rs.randint(0, 1 << 40, m).astype(np.int64), active))
+
+
+TIES = (0.25, 0.5, 1e-6, 0.75)
+# (lanes, active, values, ordered, cap) of each compaction, and the sort it
+# must take (None: sort_threshold - 1, + 1 lanes or the threshold itself)
+COMPACT_CASES = {
+    'unordered': (200000, 61000, None, False, 400000, 'none'),
+    'unordered, one tile and a lane': (4097, 4097, None, False, 8194, 'none'),
+    'ordered': (50000, 5000, None, True, 100000, 'block'),
+    'ordered ties': (50000, 4000, TIES, True, 100000, 'block'),
+    'ties over the cap': (50000, 4000, TIES, True, 1500, 'block'),
+    'none active, ordered': (30000, 0, None, True, 60000, 'none'),
+    'none active': (30000, 0, None, False, 60000, 'none'),
+    'no lanes': (0, 0, None, True, 10, 'none'),
+    'library over the cap': (400000, 150000, TIES, True, 100000, 'library'),
+    'threshold - 1': (100000, -1, TIES, True, 200000, 'block'),
+    'threshold': (100000, 0, TIES, True, 200000, 'block'),
+    'threshold + 1': (100000, 1, TIES, True, 200000, 'library'),
+    'threshold + 1 over the cap': (100000, 1, TIES, True, 5000, 'library'),
+}
+
+
+@pytest.mark.parametrize('case', list(COMPACT_CASES))
+def test_compact_matches_plain(dev, case):
+    """``whitted_lanes.compact`` keeps ``_compact``'s lanes (origin,
+    direction, weight, pixel bit for bit), in its order, and drops as many:
+    unordered and ordered, on weights full of ties, with no active lane or
+    no lane, past the cap, and just under, at and over the block sort's
+    threshold, so that both sorts run. Launches: two, and one more for a
+    sort that keeps lanes."""
+    m, n, values, ordered, cap, path = COMPACT_CASES[case]
+    if case.startswith('threshold'):
+        n += whitted_lanes.sort_threshold(dev)
+    lanes = _compact_inputs(dev, m, n, values)
+    before = dict(kernels.LAUNCHES)
+    got, dropped, sort = whitted_lanes.compact(*lanes, cap, ordered)
+    ran = {k: kernels.LAUNCHES[k] - before[k] for k in before}
+    want, want_dropped, _ = trt._compact(*lanes, cap, ordered)
+    assert sort == path
+    assert dropped == want_dropped == max(n - cap, 0)
+    for name, g, x in zip(('origin', 'direction', 'weight', 'pixel'), got,
+                          want):
+        assert _same(g, x), name
+    assert ran['whitted_lanes'] == (0 if not m else
+                                    2 + (path != 'none'))
+    assert path == 'none' or ran[f'whitted_sort_{path}'] == 1
+
+
+def test_whitted_frame_syncs(dev, whitted_scenes):
+    """A 640x480 sibenik tick (render, finish, image, ``to_uint8``) waits
+    for the card 10 times: once a compaction, the film's two divisors,
+    ``finish`` and the copy to the host; the primary rays not once."""
+    from cuda_pathtracer_tpu_torch.models import film
+    from cuda_pathtracer_tpu_torch.utils import profiling
+    arr, dyn, cam, W, H = whitted_scenes('sibenik')
+    rt = trt.Raytracer.__new__(trt.Raytracer)
+    rt.scene, rt.width, rt.height, rt.device = None, W, H, dev
+    rt.arrays, rt.dyn = arr, dyn
+    rt.render(cam)
+    with profiling.record() as got:
+        rt.render(cam)
+        rt.finish()
+        film.to_uint8(rt.image())
+    by_id = {s.id: s for s in got}
+    syncs = sorted(s.name for s in got if s.name.startswith('sync.'))
+    assert syncs == ['sync.compact'] * 6 + ['sync.div'] * 2 + [
+        'sync.finish', 'sync.to_host'], syncs
+    rays = [s for s in got if s.name == 'whitted.rays']
+    assert len(rays) == 1
+    assert not [s for s in got if s.parent == rays[0].id]
+    sorts = [s.attrs['sort'] for s in got if s.name == 'whitted.compact']
+    assert len(sorts) == 6 and sorts[0] == 'none'
+    assert set(sorts) <= {'none', 'block', 'library'}
+    for s in got:
+        if s.name == 'sync.compact':
+            assert by_id[s.parent].name == 'whitted.compact'
 
 
 # ---------------------------------------------------------------------------

@@ -12,7 +12,8 @@ from cuda_pathtracer_tpu_torch.ops import kernels
 from cuda_pathtracer_tpu_torch.tools import probe_kernels
 
 RENDER_SOURCES = {'traverse.cu', 'traverse_packet.cu', 'guiding_scatter.cu',
-                  'blur.cu', 'whitted_shade.cu', 'traverse_common.cuh'}
+                  'blur.cu', 'whitted_shade.cu', 'whitted_lanes.cu',
+                  'traverse_common.cuh'}
 INCLUDE = re.compile(r'^\s*#include\s+"([^"]+)"', re.M)
 
 
@@ -38,7 +39,10 @@ def _paths(render, probes, build):
 def test_render_library_holds_only_the_render_kernels():
     assert _names(kernels.sources()) == RENDER_SOURCES
     assert set(kernels.NAMES) == {'traverse', 'prepass', 'traverse_packet',
-                                  'guiding_scatter', 'blur', 'whitted_shade'}
+                                  'guiding_scatter', 'blur', 'whitted_shade',
+                                  'whitted_lanes'}
+    assert set(kernels.LAUNCHES) == set(kernels.NAMES) | {
+        'whitted_sort_block', 'whitted_sort_library'}
     assert not [n for n in kernels.NAMES if 'probe' in n]
     assert not [n for n in kernels._SIGNATURES if 'probe' in n]
     assert os.path.basename(kernels.library_path()).startswith(

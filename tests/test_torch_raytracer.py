@@ -13,7 +13,8 @@ the lane cap (2x the pixels) drops active lanes, and the port keeps the
 lanes the JAX package keeps (the same tolerances).
 
 (c) ``_compact`` keeps the JAX ``_compact``'s active lanes, in its order,
-on weights full of ties; ``Raytracer.image`` is the JAX package's display
+on weights full of ties, and so does the ascending order of the card's
+compaction keys (``whitted_lanes.falling_keys``); ``Raytracer.image`` is the JAX package's display
 of the frame (w = 1, no blur whatever ``blur`` says).
 
 (d) The card's route of a level (``_shade_level_kernels``: shadow rays in
@@ -31,9 +32,11 @@ from cuda_pathtracer_tpu.core.camera import Camera as JCamera
 from cuda_pathtracer_tpu.models import raytracer as jrt
 from cuda_pathtracer_tpu.scene import scene as js
 from cuda_pathtracer_tpu.scene.builder import get_outside_scene as j_outside
+from cuda_pathtracer_tpu_torch.core import vecmath as vm
 from cuda_pathtracer_tpu_torch.core.camera import Camera as TCamera
 from cuda_pathtracer_tpu_torch.models import raytracer as trt
 from cuda_pathtracer_tpu_torch.ops import dispatch as tdispatch
+from cuda_pathtracer_tpu_torch.ops import whitted_lanes
 from cuda_pathtracer_tpu_torch.scene import scene as ts
 from cuda_pathtracer_tpu_torch.scene.builder import add_cube
 from cuda_pathtracer_tpu_torch.scene.builder import get_outside_scene as t_outside
@@ -133,14 +136,42 @@ def test_compact_matches_jax(seed):
     jro, jrd, jw, jpix, jact = jrt._compact(
         *(jnp.asarray(a) for a in (ro, rd, w, pixel, active)), cap)
     keep = np.asarray(jact)
-    (tro, trd, tw, tpix), dropped = trt._compact(
+    (tro, trd, tw, tpix), dropped, sort = trt._compact(
         *(torch.from_numpy(a) for a in (ro, rd, w)),
         torch.from_numpy(pixel.astype(np.int64)), torch.from_numpy(active),
         cap, True)
     assert dropped == int(active.sum()) - cap > 0
+    assert sort == 'library'
     np.testing.assert_array_equal(tpix.numpy(), np.asarray(jpix)[keep])
     np.testing.assert_array_equal(tw.numpy(), np.asarray(jw)[keep])
     np.testing.assert_array_equal(tro.numpy(), np.asarray(jro)[keep])
+
+
+@pytest.mark.parametrize('seed', [0, 1, 2])
+def test_compact_keys_match_jax(seed):
+    """The card's compaction sorts one 64-bit key a lane
+    (``whitted_lanes.falling_keys``): on the weights of
+    :func:`test_compact_matches_jax`, the keys are unique and their
+    ascending order, cut to the cap, is ``argsort(-score, stable=True)``'s
+    and keeps the JAX ``_compact``'s lanes in its order."""
+    rng = np.random.RandomState(seed)
+    n, cap = 4096, 1024
+    w = rng.choice([0.0, 0.25, 0.5, 1e-6, 0.75], size=(n, 3)).astype(np.float32)
+    active = rng.rand(n) < 0.6
+    pixel = np.arange(n, dtype=np.int32)
+    _, _, _, jpix, jact = jrt._compact(
+        *(jnp.asarray(a) for a in (rng.rand(n, 3).astype(np.float32),
+                                   rng.rand(n, 3).astype(np.float32), w,
+                                   pixel, active)), cap)
+    tw = torch.from_numpy(w)
+    idx = torch.nonzero(torch.from_numpy(active)).squeeze(1)
+    keys = whitted_lanes.falling_keys(tw, idx)
+    assert torch.unique(keys).shape == keys.shape
+    order = torch.sort(keys).values & 0xffffffff
+    want = idx[torch.argsort(-vm.max_comp(tw[idx]), stable=True)]
+    assert torch.equal(order, want)
+    np.testing.assert_array_equal(order[:cap].numpy(),
+                                  np.asarray(jpix)[np.asarray(jact)])
 
 
 def test_image_matches_jax():
